@@ -1,0 +1,196 @@
+"""Fused byte-level merge for words of up to 32 bytes: the hand-written
+CUDA kernel ``csrc/fused_merge.cu`` and its plain PyTorch twin.
+
+The kernel replaces ``hutoken_tpu/ops/pallas_merge.py::_kernel`` /
+``_kernel_body``; the source file says how it is laid out for Hopper.
+:func:`fused_merge` launches it for CUDA tensors and runs the twin only
+for CPU tensors: there is no fallback from one to the other.
+
+The library is built with ``nvcc`` at first use into ``_build/`` (cached
+by a hash of the source and flags) and bound with ``ctypes``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+import torch
+
+from .merge import INF_RANK, compact_output, probe_pairs_packed
+
+MAX_WORD = 32  # the warp width: one lane per byte
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC = os.path.join(_PKG, "csrc", "fused_merge.cu")
+_BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def build_library() -> str:
+    """Compile ``csrc/fused_merge.cu`` (once per source hash); returns
+    the shared library's path."""
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    so = os.path.join(_BUILD_DIR, f"libfused_merge_{digest.hexdigest()[:16]}.so")
+    if os.path.exists(so):
+        return so
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
+            capture_output=True, text=True, timeout=600,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, so)  # atomic: concurrent builds agree on one file
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return so
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(build_library())
+    p = ctypes.c_void_p
+    lib.ht_fused_merge.restype = ctypes.c_int
+    lib.ht_fused_merge.argtypes = [
+        p, p, ctypes.c_int64, ctypes.c_int32,  # pkey, pval, cap_mask, probe_len
+        p, p, ctypes.c_int32,  # byte_seed, minsuper, minsuper_len
+        p, p, ctypes.c_int64, ctypes.c_int32,  # raw, lens, num_words, width
+        p, p, p,  # out, counts, stream
+    ]
+    return lib
+
+
+def _check_inputs(tab, raw: torch.Tensor, lens: torch.Tensor) -> None:
+    if raw.dim() != 2 or raw.dtype != torch.uint8:
+        raise ValueError(f"raw must be uint8 [W, L], got {raw.dtype} {tuple(raw.shape)}")
+    if raw.shape[1] > MAX_WORD:
+        raise ValueError(f"words are at most {MAX_WORD} bytes, got L={raw.shape[1]}")
+    if lens.dtype != torch.int32 or tuple(lens.shape) != (raw.shape[0],):
+        raise ValueError(f"lens must be int32 [{raw.shape[0]}]")
+    if tab.byte_seed is None:
+        raise ValueError("the fused merge needs a byte-level table (byte_seed)")
+    if raw.device != tab.device or lens.device != tab.device:
+        raise ValueError(f"inputs on {raw.device}/{lens.device}, tables on {tab.device}")
+
+
+def fused_merge(tab, raw: torch.Tensor, lens: torch.Tensor):
+    """Greedy merge of W words of at most 32 bytes.
+
+    ``raw`` uint8 [W, L <= 32] (row w holds word w's bytes), ``lens``
+    int32 [W].  Returns ``(ids int32 [W, L], counts int32 [W])``: each
+    word's tokens left-compacted, -1 after them.
+
+    A CUDA tensor launches the kernel on the current stream without
+    synchronising (and adds one to ``fused_merge.launches``); a CPU
+    tensor runs :func:`fused_merge_plain`.
+    """
+    _check_inputs(tab, raw, lens)
+    if raw.device.type == "cpu":
+        return fused_merge_plain(tab, raw, lens)
+    if raw.device.type != "cuda":
+        raise ValueError(f"unsupported device {raw.device}")
+    W, L = raw.shape
+    out = torch.empty((W, L), dtype=torch.int32, device=raw.device)
+    counts = torch.empty(W, dtype=torch.int32, device=raw.device)
+    if W == 0:
+        return out, counts
+    raw = raw.contiguous()
+    lens = lens.contiguous()
+    ms = tab.minsuper
+    with torch.cuda.device(raw.device):
+        stream = torch.cuda.current_stream(raw.device).cuda_stream
+        rc = _library().ht_fused_merge(
+            tab.pkey.data_ptr(), tab.pval.data_ptr(), tab.cap_mask, tab.probe_len,
+            tab.byte_seed.data_ptr(),
+            ms.data_ptr() if ms is not None else None,
+            ms.numel() if ms is not None else 0,
+            raw.data_ptr(), lens.data_ptr(), W, L,
+            out.data_ptr(), counts.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"fused_merge kernel launch failed: CUDA error {rc}")
+    fused_merge.launches += 1
+    return out, counts
+
+
+fused_merge.launches = 0
+
+
+def fused_merge_plain(tab, raw: torch.Tensor, lens: torch.Tensor):
+    """The kernel's rounds in plain PyTorch on [W, L] tensors: same
+    probe, same minimum, same multi-merge guard, same per-round
+    compaction.  Runs on any device; :func:`fused_merge` uses it for CPU
+    tensors, and the kernel is held against it on the card."""
+    W, L = raw.shape
+    dev = raw.device
+    col = torch.arange(L, device=dev)[None, :]
+    rows = torch.arange(W, device=dev)[:, None].expand(W, L)
+    n = lens.to(torch.int64).clamp(0, L)[:, None]
+    ids = torch.where(col < n, tab.byte_seed[raw.to(torch.int64)], -1)
+    ms = tab.minsuper
+    while True:
+        # PAD (-1) right neighbours make the probe report INF_RANK
+        right = torch.cat([ids[:, 1:], torch.full_like(ids[:, :1], -1)], dim=1)
+        rank, merged = probe_pairs_packed(tab, ids, right)
+        rank = rank.to(torch.int64)
+        finite = rank < INF_RANK
+        cand = torch.where(finite, rank * MAX_WORD + col, INF_RANK)
+        best = cand.min(dim=1, keepdim=True).values
+        if not bool((best < INF_RANK).any()):
+            break
+        applied = (col == best % MAX_WORD) & (best < INF_RANK)
+        if ms is not None:
+            in_ms = finite & (rank < ms.numel())
+            msup = torch.where(in_ms, ms[rank.clamp(0, ms.numel() - 1)].to(torch.int64), 0)
+            rprev = torch.cat([torch.full_like(rank[:, :1], INF_RANK), rank[:, :-1]], dim=1)
+            msl = torch.cat([torch.zeros_like(msup[:, :1]), msup[:, :-1]], dim=1)
+            rnext = torch.cat([rank[:, 1:], torch.full_like(rank[:, :1], INF_RANK)], dim=1)
+            msr = torch.cat([msup[:, 1:], torch.zeros_like(msup[:, :1])], dim=1)
+            safe_l = (col == 0) | ((rprev < INF_RANK) & (rprev > rank) & (msl > rank))
+            safe_r = (col + 2 >= n) | ((rnext < INF_RANK) & (rnext > rank) & (msr > rank))
+            applied = applied | (finite & safe_l & safe_r)
+        consumed = torch.cat([torch.zeros_like(applied[:, :1]), applied[:, :-1]], dim=1)
+        keep = (col < n) & ~consumed
+        ids = torch.where(applied, merged, ids)
+        # left-compact the survivors; dropped lanes land in a spare column
+        dest = torch.where(keep, torch.cumsum(keep, dim=1) - 1, L)
+        nxt = torch.full((W, L + 1), -1, dtype=ids.dtype, device=dev)
+        nxt[rows, dest] = ids
+        ids = nxt[:, :L]
+        n = keep.sum(dim=1, keepdim=True)
+    return ids.to(torch.int32), n.squeeze(1).to(torch.int32)
+
+
+def merge_words_from_bytes_fused(
+    tab, raw: torch.Tensor, lens: torch.Tensor, u16_out: bool
+) -> torch.Tensor:
+    """Byte-mode merge of words of <= 32 bytes in the packed layout of
+    :func:`~hutoken_tpu_torch.ops.merge.compact_output` (the counterpart
+    of ``merge_words_from_bytes_pallas``)."""
+    ids, _counts = fused_merge(tab, raw, lens)
+    return compact_output(ids, u16_out)
