@@ -7,19 +7,29 @@ It imports nothing of JAX.  Phases, each failing the run on its own:
 
 1. device: the card's name and power limit, torch and CUDA versions,
    and whether the native host library loaded;
-2. build: compiles the fused merge kernel from ``hutoken_tpu_torch/csrc``;
-3. kernel vs plain: the CUDA kernel against its plain PyTorch twin on
-   the same CUDA tensors, for the small, big-vocab and big-merges tables
-   at widths 8, 16 and 32 (exact equality), then both timed at the main
-   path's block shape (16,384 words x 32 bytes);
+2. build: compiles both kernels from ``hutoken_tpu_torch/csrc`` (one
+   ``nvcc`` each, started together);
+3. kernel vs plain, on the same CUDA tensors, exact equality:
+   the fused merge for the small, big-vocab and big-merges tables at
+   widths 8, 16 and 32, timed at the word pipeline's block shape
+   (16,384 words x 32 bytes); the segmented merge on mixed chunks
+   (ASCII, Hungarian accents, words of 1-32 and over 32 bytes, document
+   resets) for the same tables, timed on one raw-path chunk
+   (``HUTOKEN_TPU_RAW_C``, 4 MB) of the unique corpus;
 4. main path: the facade's ``initialize`` + ``batch_encode`` on the
-   committed 23,096-id fixture, over a 24 MB Zipf corpus and an 8 MB
-   high-entropy corpus (merges.txt config) and the Zipf corpus (string
-   path config).  Every document must equal the native host engine, a
-   sample the scalar oracle; the kernel's launch count must rise; a cold
-   run's MB/s and the share of corpus bytes sent to the device print
-   beside the card's name and power limit; a sample round-trips through
-   ``batch_decode``.
+   committed 23,096-id fixture (merges.txt and string-path configs)
+   over a 24 MB Zipf corpus and an 8 MB high-entropy corpus.  Under
+   ``HUTOKEN_TPU_RAW=auto`` the unique runs must take the raw path
+   (segmented kernel launched, nearly every byte on the device) and the
+   Zipf runs the word pipeline (fused kernel launched); big-merges /
+   unique runs once more with ``HUTOKEN_TPU_RAW=0``.  Every document
+   must equal the native host engine, a sample the scalar oracle; a
+   cold run's MB/s and the share of corpus bytes sent to the device
+   print beside the card's name and power limit; a sample round-trips
+   through ``batch_decode``;
+5. profile: one more cold run of big-merges / unique on each path under
+   ``torch.profiler``: the device busy share, the top kernels, and the
+   run's wall through ``encode_batch_arrays`` (no per-document lists).
 
 The last two lines are the kernel summary and ``{"ok": true, ...}``.
 """
@@ -31,6 +41,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -43,6 +54,8 @@ UNIQUE_MB = 8
 BLOCK_WORDS = 16384  # ROW_BLOCKS[32] of the port's engine
 CHECK_WORDS = 12345  # odd on purpose: the kernel takes any word count
 ORACLE_SAMPLE = 40
+RAW_CHUNK = 1 << 22  # HUTOKEN_TPU_RAW_C's default: the raw path's chunk bytes
+MIXED_WORDS = 40000  # words per mixed check chunk
 HIGH_BYTES = bytes(range(0x20, 0x7F)) + bytes(range(0x80, 0x100))
 
 
@@ -166,53 +179,206 @@ def kernel_vs_plain(device: str, docs: list[str], label: str) -> dict:
     return result
 
 
-def main_path(device: str, zipf: list[str], unique: list[str], label: str) -> int:
-    """Phase 4 through the facade; returns the kernel launches it made."""
+def mixed_chunk(rng, n_words: int):
+    """(chunk bytes, document ends) of random documents: ASCII letters,
+    digits and punctuation, Hungarian accented letters (0xC3/0xC5
+    pairs), words of 1-32 and some of 33-60 characters, assorted
+    whitespace."""
+    letters = list("abcdefghijklmnopqrstuvwxyzABCXYZ" + "áéíóöőúüűÁÉŐŰ")
+    other = list("0123456789.,!?-")
+    spaces = [" ", " ", " ", "  ", "\n", "\t", " \n"]
+    lens = np.where(rng.random(n_words) < 0.02,
+                    rng.integers(33, 61, n_words), rng.integers(1, 33, n_words))
+    pool = rng.choice(letters, int(lens.sum()))
+    digits = rng.choice(other, int(lens.sum()))
+    use_other = rng.random(n_words) < 0.15
+    docs, words, off = [], [], 0
+    for i, ln in enumerate(lens.tolist()):
+        src = digits if use_other[i] else pool
+        words.append("".join(src[off : off + ln]) + spaces[int(rng.integers(0, len(spaces)))])
+        off += ln
+        if rng.random() < 0.01:
+            docs.append("".join(words))
+            words = []
+    docs.append("".join(words))
+    blobs = [d.encode() for d in docs if d]
+    return np.frombuffer(b"".join(blobs), dtype=np.uint8), np.cumsum([len(b) for b in blobs])
+
+
+def raw_chunk(docs: list[str]):
+    """The unique corpus's first raw-path chunk: whole documents up to
+    RAW_CHUNK bytes, as the engine's producer fills one."""
+    blobs, size = [], 0
+    for d in docs:
+        b = d.encode()
+        if size + len(b) > RAW_CHUNK:
+            break
+        blobs.append(b)
+        size += len(b)
+    return np.frombuffer(b"".join(blobs), dtype=np.uint8), np.cumsum([len(b) for b in blobs])
+
+
+def seg_inputs(device: str, chunk: np.ndarray, ends: np.ndarray):
+    """(chunk, word starts, word lengths) on the card from the port's own
+    start mask, as the raw path lists them: longer words at length 0."""
+    import torch
+
+    from hutoken_tpu_torch.ops import split as S
+
+    c = torch.from_numpy(chunk.copy()).to(device)
+    e = torch.from_numpy(ends.astype(np.int32)).to(device)
+    starts, lens = S.chunk_words(c, e)
+    lens = torch.where(lens > S.MAX_WORD, 0, lens)
+    return c, starts.to(torch.int32), lens.to(torch.int32)
+
+
+def seg_kernel_vs_plain(device: str, docs: list[str], label: str) -> dict:
+    """Phase 3, segmented merge: kernel == twin on the card; times on
+    one raw-path chunk of the unique corpus."""
+    import torch
+
+    from hutoken_tpu_torch.ops import seg_merge as SM
+    from hutoken_tpu_torch.ops import split as S
+    from hutoken_tpu_torch.tables import device_tables
+
+    rng = np.random.default_rng(2)
+    result = {"max_abs_err": 0, "ms": {}, "plain_ms": {}}
+    big = raw_chunk(docs)
+    for name in ("small", "big-vocab", "big-merges"):
+        ctx, enc = load_config(name)
+        tab = device_tables(enc, ctx, device)
+        chunk, ends = mixed_chunk(rng, MIXED_WORDS)
+        check(S.supported_alphabet(chunk), "mixed chunk is in the device alphabet")
+        args = seg_inputs(device, chunk, ends)
+        ids, pids = SM.seg_merge(tab, *args), SM.seg_merge_plain(tab, *args)
+        err = int((ids - pids).abs().max())
+        result["max_abs_err"] = max(result["max_abs_err"], err)
+        print(f"seg kernel vs plain {name:10s} {chunk.shape[0]} B, {len(ends)} docs, "
+              f"{int((args[2] > 0).sum())} words <= 32 B of {args[1].shape[0]}: max_abs_err={err} (tolerance 0), "
+              f"tokens={int((ids >= 0).sum())}")
+        check(err == 0, f"seg kernel == plain twin ({name})")
+        args = seg_inputs(device, *big)
+        check(torch.equal(SM.seg_merge(tab, *args), SM.seg_merge_plain(tab, *args)),
+              f"seg kernel == plain twin on a raw chunk ({name})")
+        # plain, kernel, kernel, plain; the table stays in L2 as in a run
+        p1 = time_ms(lambda: SM.seg_merge_plain(tab, *args), 2)
+        k1 = time_ms(lambda: SM.seg_merge(tab, *args), 20)
+        k2 = time_ms(lambda: SM.seg_merge(tab, *args), 20)
+        p2 = time_ms(lambda: SM.seg_merge_plain(tab, *args), 2)
+        result["ms"][name] = (k1 + k2) / 2
+        result["plain_ms"][name] = (p1 + p2) / 2
+        print(f"[{label}] seg merge {name:10s} raw chunk {big[0].shape[0]} B, "
+              f"{args[1].shape[0]} words: kernel {k1:.4f} / {k2:.4f} ms, "
+              f"plain twin {p1:.3f} / {p2:.3f} ms")
+    return result
+
+
+def main_path(device: str, zipf: list[str], unique: list[str], label: str) -> dict:
+    """Phase 4 through the facade; returns each kernel's launches.  The
+    counts are zeroed right before each run and read right after it."""
     import torch
 
     import hutoken_tpu_torch as hutoken
     from hutoken_tpu import oracle
     from hutoken_tpu.native import NativeEngine
     from hutoken_tpu_torch.ops import fused_merge as FM
+    from hutoken_tpu_torch.ops import seg_merge as SM
 
-    runs = [("big-merges", "zipf", zipf), ("big-merges", "unique", unique), ("big-vocab", "zipf", zipf)]
-    launches = 0
-    for config, cname, docs in runs:
+    # (config, corpus name, docs, HUTOKEN_TPU_RAW, path it must take)
+    runs = [
+        ("big-merges", "zipf", zipf, "auto", "pipeline"),
+        ("big-merges", "unique", unique, "auto", "raw"),
+        ("big-merges", "unique", unique, "0", "pipeline"),
+        ("big-vocab", "zipf", zipf, "auto", "pipeline"),
+        ("big-vocab", "unique", unique, "auto", "raw"),
+    ]
+    launches = {"fused_merge": 0, "seg_merge": 0}
+    for config, cname, docs, raw_env, want_path in runs:
+        os.environ["HUTOKEN_TPU_RAW"] = raw_env
         vocab, special, merges = fixture_paths(config)
         kw = {"merges_file_path": merges} if merges else {}
         hutoken.initialize(vocab, special, is_byte_encoder=True, device=device, **kw)
         engine = hutoken._get_engine()
         nbytes = sum(len(d.encode()) for d in docs)
+        what = f"{config}/{cname} RAW={raw_env}"
 
-        FM.fused_merge.launches = 0
+        FM.fused_merge.launches = SM.seg_merge.launches = 0
         got = hutoken.batch_encode(docs)
-        cold_launches = FM.fused_merge.launches
-        launches += cold_launches
-        path = "pipelined" if engine._native_split_ok else "python (no native library)"
+        counts = [FM.fused_merge.launches, SM.seg_merge.launches]
         want = NativeEngine(hutoken._ctx).encode_batch(docs, 8)
         bad = sum(g != w for g, w in zip(got, want))
-        check(len(got) == len(docs) and bad == 0, f"{config}/{cname}: {bad} documents differ from native")
+        check(len(got) == len(docs) and bad == 0, f"{what}: {bad} documents differ from native")
         rng = np.random.default_rng(1)
         sample = [int(i) for i in rng.choice(len(docs), ORACLE_SAMPLE, replace=False)]
-        check(all(got[i] == oracle.encode(hutoken._ctx, docs[i]) for i in sample), f"{config}/{cname}: oracle")
+        check(all(got[i] == oracle.encode(hutoken._ctx, docs[i]) for i in sample), f"{what}: oracle")
         check(hutoken.batch_decode([got[i] for i in sample]) == [docs[i] for i in sample], "decode round trip")
-        check(cold_launches > 0, f"{config}/{cname}: fused kernel never launched")
 
         engine.reset_cache()
         dev0 = engine.stat_device_bytes
-        FM.fused_merge.launches = 0
+        FM.fused_merge.launches = SM.seg_merge.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         hutoken.batch_encode(docs)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches += FM.fused_merge.launches
+        counts = [c + n for c, n in zip(counts, (FM.fused_merge.launches, SM.seg_merge.launches))]
+        launches["fused_merge"] += counts[0]
+        launches["seg_merge"] += counts[1]
         share = (engine.stat_device_bytes - dev0) / nbytes
-        print(f"[{label}] main path {config:10s} {cname:6s} {nbytes / 1e6:.1f} MB, "
+        if want_path == "raw":
+            check(counts[1] > 0, f"{what}: the raw path never launched the segmented kernel")
+            check(share > 0.9, f"{what}: only {share:.4f} of the bytes reached the device")
+            check(engine.stat_host_cause.get("raw_host_chunk", 0) == 0, f"{what}: a chunk went to the host")
+        else:
+            check(counts[0] > 0 and counts[1] == 0, f"{what}: the word pipeline did not run the fused kernel")
+        core = "raw" if want_path == "raw" else ("pipelined" if engine._native_split_ok else "python")
+        print(f"[{label}] main path {config:10s} {cname:6s} RAW={raw_env:4s} {nbytes / 1e6:.1f} MB, "
               f"{len(docs)} docs: equal to native (all docs) and oracle ({ORACLE_SAMPLE}); "
-              f"{path} core; cold run {nbytes / 1e6 / dt:.2f} MB/s ({dt:.3f} s); "
-              f"device byte share {share:.4f}; fused launches {cold_launches} + {FM.fused_merge.launches}")
+              f"{core} core; cold run {nbytes / 1e6 / dt:.2f} MB/s ({dt:.3f} s); "
+              f"device byte share {share:.4f}; launches fused {counts[0]}, seg {counts[1]}; "
+              f"host bytes by cause {engine.stat_host_cause}")
+    os.environ.pop("HUTOKEN_TPU_RAW", None)
     return launches
+
+
+def profile_runs(device: str, unique: list[str], label: str) -> None:
+    """Phase 5: device busy share (device self time / wall) of one
+    cold run of big-merges / unique on each path, with the top kernels,
+    and the same run's wall through ``encode_batch_arrays``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import hutoken_tpu_torch as hutoken
+
+    vocab, special, merges = fixture_paths("big-merges")
+    for raw_env in ("auto", "0"):
+        os.environ["HUTOKEN_TPU_RAW"] = raw_env
+        hutoken.initialize(vocab, special, is_byte_encoder=True, device=device, merges_file_path=merges)
+        hutoken.batch_encode(unique)  # warm: kernels loaded, allocator filled
+        hutoken._get_engine().reset_cache()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            hutoken.batch_encode(unique)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        # device-side events only: an operator's row repeats its kernels' time
+        rows = [(e.self_device_time_total, e.key) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        busy = sum(t for t, _k in rows) / 1e6
+        top = ", ".join(f"{k[:40]} {t / 1e3:.2f} ms" for t, k in sorted(rows, reverse=True)[:6] if t > 0)
+        # the same cold run through the arrays API: no per-document lists
+        hutoken._get_engine().reset_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hutoken._get_engine().encode_batch_arrays(unique)
+        torch.cuda.synchronize()
+        arrays = time.perf_counter() - t0
+        print(f"[{label}] profile big-merges unique RAW={raw_env}: wall {wall:.3f} s, "
+              f"device self time {busy:.4f} s, busy share {busy / wall:.4f}; "
+              f"arrays API cold {arrays:.3f} s; top: {top}")
+    os.environ.pop("HUTOKEN_TPU_RAW", None)
 
 
 def main() -> int:
@@ -233,12 +399,16 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}, native host library loaded: {native}")
     check(native, "native host library (make -C native)")
 
-    # 2. build
+    # 2. build: one nvcc per kernel, started together
     from hutoken_tpu_torch.ops import fused_merge as FM
+    from hutoken_tpu_torch.ops import seg_merge as SM
 
     t0 = time.perf_counter()
-    so = FM.build_library()
-    print(f"built {os.path.relpath(so, HERE)} in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(2) as pool:
+        built = list(pool.map(lambda m: m.build(), (FM, SM)))
+    for so in built:
+        print(f"built {os.path.relpath(so, HERE)}")
+    print(f"both kernels built in {time.perf_counter() - t0:.1f} s")
 
     import bench
 
@@ -249,25 +419,41 @@ def main() -> int:
 
     # 3. kernel vs plain
     kv = kernel_vs_plain(device, unique, label)
+    sv = seg_kernel_vs_plain(device, unique, label)
 
     # 4. main path; counts are zeroed inside, right before each run
     launches = main_path(device, zipf, unique, label)
-    check(launches > 0, "the main path launched the fused kernel")
+    check(all(launches.values()), f"the main path launched both kernels: {launches}")
+    profile_runs(device, unique, label)
     check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules), "jax stayed unloaded")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_merge",
-        "route": "cuda",
-        "source": "hutoken_tpu_torch/csrc/fused_merge.cu",
-        "replaces": "hutoken_tpu/ops/pallas_merge.py:252",
-        "launches": launches,
-        "max_abs_err": kv["max_abs_err"],
-        "ms": kv["ms"]["big-merges"],
-        "plain_ms": kv["plain_ms"]["big-merges"],
-        "ms_by_table": kv["ms"],
-        "plain_ms_by_table": kv["plain_ms"],
-    }]}))
+    print(json.dumps({"kernels": [
+        {
+            "name": "fused_merge",
+            "route": "cuda",
+            "source": "hutoken_tpu_torch/csrc/fused_merge.cu",
+            "replaces": "hutoken_tpu/ops/pallas_merge.py:252",
+            "launches": launches["fused_merge"],
+            "max_abs_err": kv["max_abs_err"],
+            "ms": kv["ms"]["big-merges"],
+            "plain_ms": kv["plain_ms"]["big-merges"],
+            "ms_by_table": kv["ms"],
+            "plain_ms_by_table": kv["plain_ms"],
+        },
+        {
+            "name": "seg_merge",
+            "route": "cuda",
+            "source": "hutoken_tpu_torch/csrc/seg_merge.cu",
+            "replaces": "hutoken_tpu/ops/pallas_merge.py:445",
+            "launches": launches["seg_merge"],
+            "max_abs_err": sv["max_abs_err"],
+            "ms": sv["ms"]["big-merges"],
+            "plain_ms": sv["plain_ms"]["big-merges"],
+            "ms_by_table": sv["ms"],
+            "plain_ms_by_table": sv["plain_ms"],
+        },
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

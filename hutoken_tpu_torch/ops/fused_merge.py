@@ -6,74 +6,32 @@ The kernel replaces ``hutoken_tpu/ops/pallas_merge.py::_kernel`` /
 :func:`fused_merge` launches it for CUDA tensors and runs the twin only
 for CPU tensors: there is no fallback from one to the other.
 
-The library is built with ``nvcc`` at first use into ``_build/`` (cached
-by a hash of the source and flags) and bound with ``ctypes``.
+The library is built with ``nvcc`` at first use into ``_build/`` (see
+``ops/build.py``) and bound with ``ctypes``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 
 import torch
 
+from .build import build_library
 from .merge import INF_RANK, compact_output, probe_pairs_packed
 
 MAX_WORD = 32  # the warp width: one lane per byte
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "fused_merge.cu")
-_BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
 
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return found
-
-
-def build_library() -> str:
-    """Compile ``csrc/fused_merge.cu`` (once per source hash); returns
-    the shared library's path."""
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    so = os.path.join(_BUILD_DIR, f"libfused_merge_{digest.hexdigest()[:16]}.so")
-    if os.path.exists(so):
-        return so
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
-            capture_output=True, text=True, timeout=600,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, so)  # atomic: concurrent builds agree on one file
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return so
+def build() -> str:
+    """Compile the kernel (once per digest of its source and headers);
+    returns the shared library's path."""
+    return build_library("fused_merge")
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build_library())
+    lib = ctypes.CDLL(build())
     p = ctypes.c_void_p
     lib.ht_fused_merge.restype = ctypes.c_int
     lib.ht_fused_merge.argtypes = [
@@ -146,6 +104,15 @@ def fused_merge_plain(tab, raw: torch.Tensor, lens: torch.Tensor):
     probe, same minimum, same multi-merge guard, same per-round
     compaction.  Runs on any device; :func:`fused_merge` uses it for CPU
     tensors, and the kernel is held against it on the card."""
+    ids, n, _tags = merge_rounds(tab, raw, lens)
+    return ids, n
+
+
+def merge_rounds(tab, raw: torch.Tensor, lens: torch.Tensor, tags=None):
+    """``fused_merge_plain``'s rounds; ``tags`` (int [W, L] or None)
+    travel with their ids through every compaction, as the segmented
+    kernel carries byte offsets.  Returns ``(ids int32 [W, L], counts
+    int32 [W], tags)``."""
     W, L = raw.shape
     dev = raw.device
     col = torch.arange(L, device=dev)[None, :]
@@ -182,8 +149,12 @@ def fused_merge_plain(tab, raw: torch.Tensor, lens: torch.Tensor):
         nxt = torch.full((W, L + 1), -1, dtype=ids.dtype, device=dev)
         nxt[rows, dest] = ids
         ids = nxt[:, :L]
+        if tags is not None:
+            nxt_tags = torch.full((W, L + 1), -1, dtype=tags.dtype, device=dev)
+            nxt_tags[rows, dest] = tags
+            tags = nxt_tags[:, :L]
         n = keep.sum(dim=1, keepdim=True)
-    return ids.to(torch.int32), n.squeeze(1).to(torch.int32)
+    return ids.to(torch.int32), n.squeeze(1).to(torch.int32), tags
 
 
 def merge_words_from_bytes_fused(

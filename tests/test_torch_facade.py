@@ -133,15 +133,19 @@ def test_foma_unavailable_raises():
 
 def test_import_and_encode_leave_jax_unloaded():
     """tests/conftest.py imports jax into this process, so the check
-    runs in a fresh interpreter."""
+    runs in a fresh interpreter; it covers the word pipeline and the raw
+    path (whose JAX counterpart imports jax when it runs)."""
     v, s = ft.write_byte_level_fixture()
     code = (
-        "import sys, torch; torch.set_num_threads(1)\n"
+        "import os, sys, torch; torch.set_num_threads(1)\n"
         "import hutoken_tpu_torch as ht\n"
         f"ht.initialize({v!r}, {s!r}, is_byte_encoder=True, device='cpu')\n"
         "out = ht.batch_encode(['a gyors barna róka', ' The quick brown fox'])\n"
         "assert out and all(out), out\n"
-        "assert ht._engine is not None\n"
+        "assert ht._engine is not None and ht._engine._raw_enc is None\n"
+        "os.environ['HUTOKEN_TPU_RAW'] = '1'\n"
+        "assert ht.batch_encode(['a gyors barna róka', ' The quick brown fox']) == out\n"
+        "assert ht._engine._raw_enc is not None and ht._engine.stat_device_bytes > 0\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
