@@ -7,8 +7,8 @@ It imports nothing of JAX.  Phases, each failing the run on its own:
 
 1. device: the card's name and power limit, torch and CUDA versions,
    and whether the native host library loaded;
-2. build: compiles both kernels from ``hutoken_tpu_torch/csrc`` (one
-   ``nvcc`` each, started together);
+2. build: compiles the three kernel sources of ``hutoken_tpu_torch/csrc``
+   (one ``nvcc`` each, started together);
 3. kernel vs plain, on the same CUDA tensors, exact equality:
    the fused merge for the small, big-vocab and big-merges tables at
    widths 8, 16 and 32, timed at the word pipeline's block shape
@@ -16,7 +16,10 @@ It imports nothing of JAX.  Phases, each failing the run on its own:
    (ASCII, Hungarian accents, words of 1-32 and over 32 bytes, document
    resets) for the same tables, timed on one raw-path chunk
    (``HUTOKEN_TPU_RAW_C``, 4 MB) of the unique corpus;
-4. main path: the facade's ``initialize`` + ``batch_encode`` on the
+4. gather probe: ``hutoken_tpu_torch.profile_gather`` at every shape of
+   the three TPU gather-profiling scripts, each gather kernel equal to
+   its twin (tolerance 0), kernel and twin times and M lookups/s;
+5. main path: the facade's ``initialize`` + ``batch_encode`` on the
    committed 23,096-id fixture (merges.txt and string-path configs)
    over a 24 MB Zipf corpus and an 8 MB high-entropy corpus.  Under
    ``HUTOKEN_TPU_RAW=auto`` the unique runs must take the raw path
@@ -27,9 +30,15 @@ It imports nothing of JAX.  Phases, each failing the run on its own:
    cold run's MB/s and the share of corpus bytes sent to the device
    print beside the card's name and power limit; a sample round-trips
    through ``batch_decode``;
-5. profile: one more cold run of big-merges / unique on each path under
-   ``torch.profiler``: the device busy share, the top kernels, and the
-   run's wall through ``encode_batch_arrays`` (no per-document lists).
+6. device decode: the facade with ``backend="device"`` decodes the ids
+   of both corpora under both configs; every document must equal the
+   native decode and the original text, the device path must have run,
+   and decode MB/s prints beside the native host decode's; the engine's
+   ``decode_arrays_device`` must return a CUDA blob equal byte for byte
+   to the native ``decode_arrays``;
+7. profile: one more cold run of big-merges / unique on each encode path
+   under ``torch.profiler``: the device busy share, the top kernels, and
+   the run's wall through ``encode_batch_arrays`` (no per-document lists).
 
 The last two lines are the kernel summary and ``{"ok": true, ...}``.
 """
@@ -38,7 +47,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -62,14 +70,6 @@ HIGH_BYTES = bytes(range(0x20, 0x7F)) + bytes(range(0x80, 0x100))
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
-
-
-def card_label() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout
-    return out.strip().splitlines()[0]
 
 
 def fixture_paths(name: str):
@@ -274,7 +274,7 @@ def seg_kernel_vs_plain(device: str, docs: list[str], label: str) -> dict:
 
 
 def main_path(device: str, zipf: list[str], unique: list[str], label: str) -> dict:
-    """Phase 4 through the facade; returns each kernel's launches.  The
+    """Phase 5 through the facade; returns each kernel's launches.  The
     counts are zeroed right before each run and read right after it."""
     import torch
 
@@ -341,8 +341,114 @@ def main_path(device: str, zipf: list[str], unique: list[str], label: str) -> di
     return launches
 
 
+GATHER_REPS = 20  # timed calls per kernel and shape in the gather probe
+
+
+def gather_probe(device: str, label: str) -> list[dict]:
+    """Phase 4: the gather probe at every shape of the three scripts, its
+    kernels' counts zeroed right before and read right after.  Returns
+    one kernels-line entry per TPU kernel: the worst error over its
+    shapes, the times at the largest shape of its Pallas loop."""
+    from hutoken_tpu_torch import profile_gather as PG
+    from hutoken_tpu_torch.ops import gather as G
+
+    G.reset_launches()
+    rows = PG.run(device, timer=PG.cuda_timer(GATHER_REPS), label=label)
+    entries = []
+    for probe, (kernel, mode, replaces) in PG.KERNELS.items():
+        launches = G.gather_1d.launches_by_mode[mode] if mode else getattr(G, kernel).launches
+        check(launches > 0, f"the probe launched {kernel} ({probe})")
+        mine = [r for r in rows if r["probe"] == probe]
+        # the last of the largest shapes of its Pallas loop (largest table)
+        main = max(reversed([r for r in mine if r["pallas"]]), key=lambda r: r["lookups"])
+        entry = {
+            "name": kernel,
+            "route": "cuda",
+            "source": "hutoken_tpu_torch/csrc/gather.cu",
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
+            "shape": main["case"],
+            "ms_by_shape": {r["case"]: r["ms"] for r in mine},
+            "plain_ms_by_shape": {r["case"]: r["plain_ms"] for r in mine},
+        }
+        if mode:
+            entry["variant"] = mode
+        entries.append(entry)
+    return entries
+
+
+def device_decode(device: str, zipf: list[str], unique: list[str], label: str) -> None:
+    """Phase 6: device decode through the facade (``backend="device"``)
+    against the native decode of the same ids, and the engine's
+    ``decode_arrays_device``.  ``decode_tokens_blob``'s count is zeroed
+    right before each decode and read right after."""
+    import torch
+
+    import hutoken_tpu_torch as hutoken
+    from hutoken_tpu.native import NativeEngine
+    from hutoken_tpu_torch.ops import decode as D
+
+    for config in ("big-merges", "big-vocab"):
+        vocab, special, merges = fixture_paths(config)
+        kw = {"merges_file_path": merges} if merges else {}
+        hutoken.initialize(vocab, special, is_byte_encoder=True, backend="device",
+                           device=device, **kw)
+        native = NativeEngine(hutoken._ctx)
+        for cname, docs in (("zipf", zipf), ("unique", unique)):
+            what = f"decode {config}/{cname}"
+            ids = native.encode_batch(docs, 8)
+            nbytes = sum(len(d.encode()) for d in docs)
+            walls = []
+            for _run in range(2):  # the first run also builds the table
+                D.decode_tokens_blob.calls = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = hutoken.batch_decode(ids)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                check(D.decode_tokens_blob.calls > 0, f"{what}: the device path never ran")
+            engine = hutoken._get_engine()
+            check(engine._prefer_device_decode, f"{what}: the engine prefers the device")
+            native_walls = {}
+            for threads in (1, 8):
+                t0 = time.perf_counter()
+                want = native.decode_batch(ids, threads)
+                native_walls[threads] = time.perf_counter() - t0
+            bad = sum(g != w for g, w in zip(got, want))
+            check(len(got) == len(docs) and bad == 0, f"{what}: {bad} documents differ from native")
+            check(got == docs, f"{what}: the decode differs from the original text")
+
+            flat = np.concatenate([np.asarray(t, dtype=np.int64) for t in ids])
+            offs = np.concatenate(([0], np.cumsum([len(t) for t in ids]))).astype(np.int64)
+            D.decode_tokens_blob_tot.calls = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            blob, boffs = engine.decode_arrays_device(flat, offs)
+            torch.cuda.synchronize()
+            arrays_wall = time.perf_counter() - t0
+            check(isinstance(blob, torch.Tensor) and blob.is_cuda, f"{what}: the blob is on the card")
+            check(D.decode_tokens_blob_tot.calls > 0, f"{what}: decode_arrays_device ran on the card")
+            want_blob, want_offs = native.decode_arrays(flat, offs)
+            host = blob[: int(boffs[-1])].cpu().numpy().tobytes()
+            check(host == want_blob and np.array_equal(boffs, want_offs),
+                  f"{what}: decode_arrays_device differs from native decode_arrays")
+            mb = nbytes / 1e6
+            print(f"[{label}] device decode {config:10s} {cname:6s} {mb:.1f} MB, {len(docs)} docs, "
+                  f"{flat.shape[0]} tokens: equal to native and the text (all docs); "
+                  f"batch_decode {mb / walls[0]:.2f} MB/s first run ({walls[0]:.3f} s), "
+                  f"{mb / walls[1]:.2f} MB/s second ({walls[1]:.3f} s), "
+                  f"decode_tokens_blob calls {D.decode_tokens_blob.calls}; native decode_batch "
+                  f"{mb / native_walls[1]:.2f} MB/s on 1 thread ({native_walls[1]:.3f} s), "
+                  f"{mb / native_walls[8]:.2f} MB/s on 8 ({native_walls[8]:.3f} s); "
+                  f"decode_arrays_device {mb / arrays_wall:.2f} MB/s ({arrays_wall:.3f} s), "
+                  f"bytes and offsets exact")
+
+
 def profile_runs(device: str, unique: list[str], label: str) -> None:
-    """Phase 5: device busy share (device self time / wall) of one
+    """Phase 7: device busy share (device self time / wall) of one
     cold run of big-merges / unique on each path, with the top kernels,
     and the same run's wall through ``encode_batch_arrays``."""
     import torch
@@ -390,6 +496,8 @@ def main() -> int:
     device = "cuda"
 
     # 1. device
+    from hutoken_tpu_torch.profile_gather import card_label
+
     label = card_label()
     print(label)
     from hutoken_tpu.native import load_native
@@ -399,16 +507,17 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}, native host library loaded: {native}")
     check(native, "native host library (make -C native)")
 
-    # 2. build: one nvcc per kernel, started together
+    # 2. build: one nvcc per kernel source, started together
     from hutoken_tpu_torch.ops import fused_merge as FM
+    from hutoken_tpu_torch.ops import gather as G
     from hutoken_tpu_torch.ops import seg_merge as SM
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        built = list(pool.map(lambda m: m.build(), (FM, SM)))
+    with ThreadPoolExecutor(3) as pool:
+        built = list(pool.map(lambda m: m.build(), (FM, SM, G)))
     for so in built:
         print(f"built {os.path.relpath(so, HERE)}")
-    print(f"both kernels built in {time.perf_counter() - t0:.1f} s")
+    print(f"all three kernel sources built in {time.perf_counter() - t0:.1f} s")
 
     import bench
 
@@ -421,9 +530,21 @@ def main() -> int:
     kv = kernel_vs_plain(device, unique, label)
     sv = seg_kernel_vs_plain(device, unique, label)
 
-    # 4. main path; counts are zeroed inside, right before each run
+    # 4. gather probe; counts are zeroed inside, right before the run
+    t0 = time.perf_counter()
+    gathers = gather_probe(device, label)
+    print(f"gather probe took {time.perf_counter() - t0:.1f} s")
+
+    # 5. main path; counts are zeroed inside, right before each run
     launches = main_path(device, zipf, unique, label)
     check(all(launches.values()), f"the main path launched both kernels: {launches}")
+
+    # 6. device decode
+    t0 = time.perf_counter()
+    device_decode(device, zipf, unique, label)
+    print(f"device decode took {time.perf_counter() - t0:.1f} s")
+
+    # 7. profile
     profile_runs(device, unique, label)
     check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules), "jax stayed unloaded")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
@@ -453,6 +574,7 @@ def main() -> int:
             "ms_by_table": sv["ms"],
             "plain_ms_by_table": sv["plain_ms"],
         },
+        *gathers,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

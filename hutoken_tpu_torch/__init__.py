@@ -17,8 +17,14 @@ Backend (``backend=`` or env ``HUTOKEN_TPU_BACKEND``):
 * ``host``   — the native C++ engine or the scalar oracle,
 * ``auto``   — batch encode on the device, single encode on the host.
 
-Decode always runs on the host path (device decode is ROADMAP queue 1
-item 6).  This module never imports JAX.
+Decode routes as the JAX facade's does.  Under ``device`` both
+``decode`` and ``batch_decode`` go to the engine, which decodes on the
+device (``HUTOKEN_TPU_DECODE`` may still send it to its host path);
+under ``auto`` ``batch_decode`` goes there only with
+``HUTOKEN_TPU_DECODE=device``, since the engine's default decode is the
+native host decode that ``auto`` runs anyway and building the engine
+needs the device.  Everything else decodes on the host.  This module
+never imports JAX.
 """
 
 from __future__ import annotations
@@ -141,7 +147,9 @@ def _get_engine():
     if _engine is None:
         from .engine import TorchTokenizer
 
-        _engine = TorchTokenizer(_ctx, device=_device)
+        _engine = TorchTokenizer(
+            _ctx, device=_device, prefer_device_decode=(_backend == "device")
+        )
     return _engine
 
 
@@ -163,6 +171,20 @@ def _use_device(batch: bool) -> bool:
     if _backend == "host":
         return False
     return _backend == "device" or batch
+
+
+def _decode_on_engine(batch: bool) -> bool:
+    """Whether a decode goes to the engine: always under ``device``, and
+    a batch under ``auto`` when ``HUTOKEN_TPU_DECODE=device``.  The JAX
+    facade also sends every ``auto`` batch there, whose engine then
+    decodes on the native host path; the port skips the engine in that
+    case, because building it needs the device."""
+    if _backend == "device":
+        return True
+    return (
+        batch and _backend == "auto"
+        and os.environ.get("HUTOKEN_TPU_DECODE") == "device"
+    )
 
 
 def _encode_host(texts: list[str], num_threads: int) -> list[list[int]]:
@@ -207,10 +229,12 @@ def batch_encode(texts: list[str], num_threads: int = 1) -> list[list[int]]:
 
 
 def decode(tokens: list[int]) -> str:
-    """Decode one token list (host path)."""
+    """Decode one token list."""
     if _ctx is None:
         raise RuntimeError(f"hutoken: Error decoding tokens: {_DECODE_UNINIT_MSG}")
     try:
+        if _decode_on_engine(batch=False):
+            return _get_engine().decode_batch([list(tokens)])[0]
         return _decode_host([list(tokens)], 1)[0]
     except ValueError as e:
         traceback.print_exc(file=sys.stderr)
@@ -221,12 +245,16 @@ def decode(tokens: list[int]) -> str:
 
 
 def batch_decode(tokens: list[list[int]], num_threads: int = 1) -> list[str]:
-    """Decode a batch (host path)."""
+    """Decode a batch."""
     if _ctx is None:
         raise RuntimeError(f"hutoken: Error decoding tokens: {_DECODE_UNINIT_MSG}")
     try:
         if len(tokens) <= 0:
             raise ValueError("No tokens provided.")
+        if _decode_on_engine(batch=True):
+            return _get_engine().decode_batch(
+                [list(t) for t in tokens], num_threads=num_threads
+            )
         return _decode_host([list(t) for t in tokens], num_threads)
     except Exception as e:
         traceback.print_exc(file=sys.stderr)
