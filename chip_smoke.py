@@ -341,9 +341,6 @@ def main_path(device: str, zipf: list[str], unique: list[str], label: str) -> di
     return launches
 
 
-GATHER_REPS = 20  # timed calls per kernel and shape in the gather probe
-
-
 def gather_probe(device: str, label: str) -> list[dict]:
     """Phase 4: the gather probe at every shape of the three scripts, its
     kernels' counts zeroed right before and read right after.  Returns
@@ -353,7 +350,7 @@ def gather_probe(device: str, label: str) -> list[dict]:
     from hutoken_tpu_torch.ops import gather as G
 
     G.reset_launches()
-    rows = PG.run(device, timer=PG.cuda_timer(GATHER_REPS), label=label)
+    rows = PG.run(device, timer=PG.cuda_time, label=label)
     entries = []
     for probe, (kernel, mode, replaces) in PG.KERNELS.items():
         launches = G.gather_1d.launches_by_mode[mode] if mode else getattr(G, kernel).launches

@@ -84,9 +84,8 @@ def gather_1d(table: torch.Tensor, idx: torch.Tensor, smem: bool) -> torch.Tenso
     counterpart of ``k_taa``) and raises if ``C`` does not fit.
 
     A CUDA tensor launches the kernel on the current stream without
-    synchronising and adds one to ``gather_1d.launches`` and to
-    ``gather_1d.launches_by_mode["smem" | "l2"]``; a CPU tensor runs
-    :func:`gather_1d_plain`.
+    synchronising and adds one to ``gather_1d.launches_by_mode["smem" |
+    "l2"]``; a CPU tensor runs :func:`gather_1d_plain`.
     """
     dev = _check("gather_1d", ("table", table), ("idx", idx))
     if table.dim() != 1:
@@ -106,12 +105,10 @@ def gather_1d(table: torch.Tensor, idx: torch.Tensor, smem: bool) -> torch.Tenso
     table, idx = table.contiguous(), idx.contiguous()
     _launch("gather_1d", _library().ht_gather_1d, dev, table.data_ptr(), table.numel(),
             idx.data_ptr(), idx.numel(), out.data_ptr(), int(smem))
-    gather_1d.launches += 1
     gather_1d.launches_by_mode["smem" if smem else "l2"] += 1
     return out
 
 
-gather_1d.launches = 0
 gather_1d.launches_by_mode = {"l2": 0, "smem": 0}
 
 
@@ -224,6 +221,5 @@ def gather_cols_plain(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def reset_launches() -> None:
     """Set every gather kernel's launch count to 0."""
-    gather_1d.launches = gather_two_level.launches = 0
-    gather_rows.launches = gather_cols.launches = 0
+    gather_two_level.launches = gather_rows.launches = gather_cols.launches = 0
     gather_1d.launches_by_mode.update(l2=0, smem=0)

@@ -4,7 +4,7 @@ scripts (``scripts/profile_pallas_gather.py``,
 with their loops, shapes and checks, run through the hand-written
 kernels of ``ops/gather.py`` and their plain PyTorch twins.
 
-    python -m hutoken_tpu_torch.profile_gather [--reps N]
+    python -m hutoken_tpu_torch.profile_gather
 
 For each shape it checks kernel == twin exactly (and, for the two-level
 gather, the script's composed semantics and whether it happens to equal
@@ -28,6 +28,11 @@ from typing import Callable, Optional
 import torch
 
 from .ops import gather as G
+
+REPS = 20  # timed calls per kernel and shape
+SEED = 0
+LEAD_CYCLES = 1 << 25  # first length of the sleep that leads each timed loop
+LEAD_DOUBLINGS = 4  # times the sleep may double before the timer gives up
 
 
 @dataclass(frozen=True)
@@ -109,9 +114,10 @@ def make_inputs(case: Case, gen: torch.Generator, device) -> tuple:
                 ints(d["C"], (d["N"] // G.LANES, G.LANES)))
     if case.probe == "rows":
         return ints(1 << 16, (d["W"], d["C2"])), ints(d["C2"], (d["W"], d["L"]))
-    # cols: a column-replicated table, as the script broadcasts [C, 1]
-    tbl = ints(1 << 16, (d["C"], 1)).expand(d["C"], G.LANES).contiguous()
-    return tbl, ints(d["C"], (d["N"] // G.LANES, G.LANES))
+    # cols: the script broadcasts a [C, 1] table, whose equal columns would
+    # hide a kernel that reads the wrong column; the same layout, every
+    # entry drawn
+    return ints(1 << 16, (d["C"], G.LANES)), ints(d["C"], (d["N"] // G.LANES, G.LANES))
 
 
 def kernel_and_twin(probe: str) -> tuple[Callable, Callable]:
@@ -126,36 +132,36 @@ def kernel_and_twin(probe: str) -> tuple[Callable, Callable]:
     }[probe]
 
 
-def cuda_timer(reps: int, lead_cycles: int = 1 << 25) -> Callable[[Callable], float]:
-    """Device ms per call of ``fn`` over ``reps`` back-to-back calls, by
+def cuda_time(fn) -> float:
+    """Device ms per call of ``fn`` over ``REPS`` back-to-back calls, by
     CUDA events, after one warm call.
 
     A call at the scripts' smaller shapes runs for a few microseconds on
     the card, less than the host takes to enqueue it, so events around a
     plain loop would time the host.  A sleep kernel queued first holds
     the stream while the host enqueues every call; the sleep is doubled
-    until it outlasts the enqueue."""
-
-    def timer(fn) -> float:
-        fn()
+    until it outlasts the enqueue, and the timer raises if it never does
+    rather than return a time the host paced."""
+    fn()
+    torch.cuda.synchronize()
+    for doubling in range(LEAD_DOUBLINGS + 1):
+        lead, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        lead.record()
+        torch.cuda._sleep(LEAD_CYCLES << doubling)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(REPS):
+            fn()
+        end.record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
-        cycles = lead_cycles
-        while True:
-            lead, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-            lead.record()
-            torch.cuda._sleep(cycles)
-            start.record()
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            end.record()
-            enqueue_ms = (time.perf_counter() - t0) * 1e3
-            torch.cuda.synchronize()
-            if lead.elapsed_time(start) > enqueue_ms or cycles >= lead_cycles << 4:
-                return start.elapsed_time(end) / reps
-            cycles <<= 1
-
-    return timer
+        lead_ms = lead.elapsed_time(start)
+        if lead_ms > enqueue_ms:
+            return start.elapsed_time(end) / REPS
+    raise RuntimeError(
+        f"cuda_time: a {lead_ms:.3f} ms lead did not outlast the host's "
+        f"{enqueue_ms:.3f} ms enqueue of {REPS} calls; the loop was host-paced"
+    )
 
 
 def run_case(case: Case, device, gen: torch.Generator,
@@ -187,11 +193,12 @@ def run_case(case: Case, device, gen: torch.Generator,
 
 
 def run(device, cases: Optional[list[Case]] = None, timer: Optional[Callable] = None,
-        label: str = "", seed: int = 0, out=sys.stdout) -> list[dict]:
+        label: str = "", out=sys.stdout) -> list[dict]:
     """Every case on ``device``; one line each.  Times and rates only
-    with a timer (on the card); a CPU run prints "not measured"."""
+    with a timer (on the card, :func:`cuda_time`); a CPU run prints "not
+    measured"."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen.manual_seed(SEED)
     rows = []
     for case in cases if cases is not None else script_cases():
         row = run_case(case, device, gen, timer)
@@ -224,9 +231,7 @@ def card_label() -> str:
 
 
 def main(argv: Optional[list[str]] = None) -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--reps", type=int, default=20, help="timed calls per kernel and shape")
-    args = parser.parse_args(argv)
+    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_gather: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
@@ -235,7 +240,7 @@ def main(argv: Optional[list[str]] = None) -> int:
     t0 = time.perf_counter()
     G.build()
     print(f"gather kernels built in {time.perf_counter() - t0:.1f} s")
-    run("cuda", timer=cuda_timer(args.reps), label=label)
+    run("cuda", timer=cuda_time, label=label)
     return 0
 
 

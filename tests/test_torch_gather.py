@@ -212,8 +212,8 @@ def test_entry_points_check_inputs_and_count_only_cuda_launches():
     G.gather_two_level(t.reshape(2, 128), i)
     G.gather_rows(t.reshape(2, 128), i)
     G.gather_cols(t.reshape(2, 128), i)
-    assert (G.gather_1d.launches, G.gather_two_level.launches, G.gather_rows.launches,
-            G.gather_cols.launches) == (0, 0, 0, 0)
+    assert (G.gather_two_level.launches, G.gather_rows.launches,
+            G.gather_cols.launches) == (0, 0, 0)
     assert G.gather_1d.launches_by_mode == {"l2": 0, "smem": 0}
 
 
@@ -263,10 +263,88 @@ def test_probe_runs_on_cpu_without_times():
     assert text.count("times not measured") == 5 and " ms" not in text
 
 
+@pytest.mark.parametrize("probe,dims,wrong", [
+    # reads column 0 whatever the lane
+    ("cols", dict(C=64, N=256), lambda t, i: t[:, 0][i.long()]),
+    # forgets the row's offset
+    ("rows", dict(W=16, C2=128, L=32), lambda R, i: R.reshape(-1)[i.long()]),
+    # the true gather, which the composed gather is not
+    ("two_level", dict(C=2048, N=512), lambda t, i: t.reshape(-1)[i.long()]),
+])
+def test_probe_inputs_tell_a_wrong_kernel_from_the_twin(probe, dims, wrong):
+    """The probe holds each kernel against its twin on the card on
+    ``make_inputs``' tensors; a plausible wrong kernel must give another
+    answer on them, or the check could not see it."""
+    gen = torch.Generator()
+    gen.manual_seed(PG.SEED)
+    args = PG.make_inputs(PG.Case(probe, "t", dims), gen, "cpu")
+    _kernel, twin = PG.kernel_and_twin(probe)
+    assert not torch.equal(wrong(*args), twin(*args))
+
+
+class _FakeCuda:
+    """A stream whose clock moves by the sleep's cycles and the calls'
+    device time, and a host clock that moves by each call's enqueue."""
+
+    def __init__(self, ms_per_cycle, host_ms_per_call, dev_ms_per_call):
+        self.dev = self.host = 0.0
+        self.sleeps = []
+        self.ms_per_cycle = ms_per_cycle
+        self.host_ms, self.dev_ms = host_ms_per_call, dev_ms_per_call
+        fake = self
+
+        class Event:
+            def __init__(self, enable_timing=False):
+                self.t = None
+
+            def record(self):
+                self.t = fake.dev
+
+            def elapsed_time(self, other):
+                return other.t - self.t
+
+        self.Event = Event
+
+    def synchronize(self):
+        pass
+
+    def _sleep(self, cycles):
+        self.sleeps.append(cycles)
+        self.dev += cycles * self.ms_per_cycle
+
+    def perf_counter(self):
+        return self.host / 1e3
+
+    def call(self):
+        self.host += self.host_ms
+        self.dev += self.dev_ms
+
+
+@pytest.mark.parametrize("host_ms,sleeps", [
+    (0.01, 1),  # the first lead outlasts the enqueue
+    (0.3, 3),  # it takes two doublings
+    (50.0, None),  # no lead outlasts it: the time would be the host's
+])
+def test_cuda_time_times_the_device_or_raises(monkeypatch, host_ms, sleeps):
+    first_lead_ms = 2.0
+    fake = _FakeCuda(first_lead_ms / PG.LEAD_CYCLES, host_ms, dev_ms_per_call=0.003)
+    for name in ("Event", "synchronize", "_sleep"):
+        monkeypatch.setattr(torch.cuda, name, getattr(fake, name))
+    monkeypatch.setattr(PG.time, "perf_counter", fake.perf_counter)
+    # the enqueue of REPS calls against leads of 2, 4, 8, ... ms
+    if sleeps is None:
+        with pytest.raises(RuntimeError, match="host-paced"):
+            PG.cuda_time(fake.call)
+        assert len(fake.sleeps) == PG.LEAD_DOUBLINGS + 1
+    else:
+        assert PG.cuda_time(fake.call) == pytest.approx(0.003)
+        assert fake.sleeps == [PG.LEAD_CYCLES << k for k in range(sleeps)]
+
+
 def test_probe_main_needs_cuda(capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    assert PG.main(["--reps", "1"]) == 1
+    assert PG.main([]) == 1
     assert "no CUDA device" in capsys.readouterr().err
 
 
