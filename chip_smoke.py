@@ -36,6 +36,18 @@ It imports nothing of JAX.  Phases, each failing the run on its own:
    and decode MB/s prints beside the native host decode's; the engine's
    ``decode_arrays_device`` must return a CUDA blob equal byte for byte
    to the native ``decode_arrays``;
+6w. the generated 100,256-id vocabulary
+   (``tests/torch_parity.py::write_wide_fixture``, string and merges
+   paths, written to a temporary directory): the wide fused kernel
+   against its twin as in phase 3, on Zipf corpus words (which must give
+   ids of 0x10000 or more); then one facade ``initialize``
+   (``backend="device"``) per configuration; ``batch_encode`` of both
+   corpora under ``HUTOKEN_TPU_RAW=auto`` must take the word pipeline
+   with the wide kernel (never the raw path: the JAX engine has none for
+   such a vocabulary) and equal the native engine on every document and
+   the oracle on a sample, and the two runs must hold ids of 0x10000 or
+   more between them (the unique corpus's random identifiers do not
+   reach them); then device decode of the same ids as in phase 6;
 7. profile: one more cold run of big-merges / unique on each encode path
    under ``torch.profiler``: the device busy share, the top kernels, and
    the run's wall through ``encode_batch_arrays`` (no per-document lists).
@@ -48,6 +60,7 @@ from __future__ import annotations
 import json
 import os
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -82,12 +95,21 @@ def fixture_paths(name: str):
     return (*ft.write_big_vocab_fixture(), merges)
 
 
-def load_config(name: str):
-    """(TokenizerContext, EncoderTables) of a fixture configuration."""
+def wide_paths(directory: str) -> dict:
+    """Write the generated 100,256-id vocabulary into ``directory``;
+    returns config name -> (vocab, special chars, merges or None)."""
+    import torch_parity as tp
+
+    vocab, special, merges = tp.write_wide_fixture(directory)
+    return {"wide-string": (vocab, special, None), "wide-merges": (vocab, special, merges)}
+
+
+def load_config(paths):
+    """(TokenizerContext, EncoderTables) of (vocab, special, merges)."""
     from hutoken_tpu.context import TokenizerContext
     from hutoken_tpu.tables import build_encoder_tables
 
-    vocab, special, merges = fixture_paths(name)
+    vocab, special, merges = paths
     ctx = TokenizerContext.load(vocab, special, is_byte_encoder=True, merges_file_path=merges)
     return ctx, build_encoder_tables(ctx)
 
@@ -135,8 +157,11 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_vs_plain(device: str, docs: list[str], label: str) -> dict:
-    """Phase 3: kernel == twin on the card; times at the block shape."""
+def kernel_vs_plain(device: str, docs: list[str], label: str, configs: dict) -> dict:
+    """Phase 3: kernel == twin on the card for each of ``configs`` (name
+    -> paths; all narrow or all wide, the variant each launches); times
+    at the block shape.  A wide table's corpus words must give ids of
+    0x10000 or more."""
     import torch
 
     from hutoken_tpu_torch.ops import fused_merge as FM
@@ -144,9 +169,10 @@ def kernel_vs_plain(device: str, docs: list[str], label: str) -> dict:
 
     rng = np.random.default_rng(0)
     result = {"max_abs_err": 0, "ms": {}, "plain_ms": {}}
-    for name in ("small", "big-vocab", "big-merges"):
-        ctx, enc = load_config(name)
+    for name, paths in configs.items():
+        ctx, enc = load_config(paths)
         tab = device_tables(enc, ctx, device)
+        check(tab.wide == name.startswith("wide-"), f"{name}: the table's layout")
         for width in (8, 16, 32):
             raw, lens = random_block(rng, CHECK_WORDS, width)
             r, n = torch.from_numpy(raw).to(device), torch.from_numpy(lens).to(device)
@@ -157,15 +183,19 @@ def kernel_vs_plain(device: str, docs: list[str], label: str) -> dict:
             )
             result["max_abs_err"] = max(result["max_abs_err"], err)
             merged = int((counts < n).sum())
-            print(f"kernel vs plain  {name:10s} W={CHECK_WORDS} L={width}: "
-                  f"max_abs_err={err} (tolerance 0), words merged={merged}")
+            print(f"kernel vs plain  {name:11s} W={CHECK_WORDS} L={width}: "
+                  f"max_abs_err={err} (tolerance 0), words merged={merged}, "
+                  f"max id {int(ids.max())}")
             check(err == 0, f"kernel == plain twin ({name}, L={width})")
         raw, lens = corpus_block(docs, rng, BLOCK_WORDS, 32)
         r, n = torch.from_numpy(raw).to(device), torch.from_numpy(lens).to(device)
+        ids, counts = FM.fused_merge(tab, r, n)
         check(
-            all(torch.equal(a, b) for a, b in zip(FM.fused_merge(tab, r, n), FM.fused_merge_plain(tab, r, n))),
+            all(torch.equal(a, b) for a, b in zip((ids, counts), FM.fused_merge_plain(tab, r, n))),
             f"kernel == plain twin on corpus words ({name})",
         )
+        if tab.wide:
+            check(int(ids.max()) >= 0x10000, f"{name}: corpus words give ids of 0x10000 or more")
         # plain, kernel, kernel, plain; the pair table is meant to stay in
         # L2, so launches are not separated by a cache flush
         p1 = time_ms(lambda: FM.fused_merge_plain(tab, r, n), 3)
@@ -174,7 +204,7 @@ def kernel_vs_plain(device: str, docs: list[str], label: str) -> dict:
         p2 = time_ms(lambda: FM.fused_merge_plain(tab, r, n), 3)
         result["ms"][name] = (k1 + k2) / 2
         result["plain_ms"][name] = (p1 + p2) / 2
-        print(f"[{label}] fused merge {name:10s} {BLOCK_WORDS}x32 corpus words: "
+        print(f"[{label}] fused merge {name:11s} {BLOCK_WORDS}x32 corpus words: "
               f"kernel {k1:.4f} / {k2:.4f} ms, plain twin {p1:.3f} / {p2:.3f} ms")
     return result
 
@@ -245,7 +275,7 @@ def seg_kernel_vs_plain(device: str, docs: list[str], label: str) -> dict:
     result = {"max_abs_err": 0, "ms": {}, "plain_ms": {}}
     big = raw_chunk(docs)
     for name in ("small", "big-vocab", "big-merges"):
-        ctx, enc = load_config(name)
+        ctx, enc = load_config(fixture_paths(name))
         tab = device_tables(enc, ctx, device)
         chunk, ends = mixed_chunk(rng, MIXED_WORDS)
         check(S.supported_alphabet(chunk), "mixed chunk is in the device alphabet")
@@ -273,16 +303,82 @@ def seg_kernel_vs_plain(device: str, docs: list[str], label: str) -> dict:
     return result
 
 
-def main_path(device: str, zipf: list[str], unique: list[str], label: str) -> dict:
-    """Phase 5 through the facade; returns each kernel's launches.  The
-    counts are zeroed right before each run and read right after it."""
+def launch_counts() -> dict:
+    """The encode kernels' launch counts (narrow fused, wide fused, seg)."""
+    from hutoken_tpu_torch.ops import fused_merge as FM
+    from hutoken_tpu_torch.ops import seg_merge as SM
+
+    return {"fused_merge": FM.fused_merge.launches,
+            "fused_merge_wide": FM.fused_merge.wide_launches,
+            "seg_merge": SM.seg_merge.launches}
+
+
+def zero_launch_counts() -> None:
+    from hutoken_tpu_torch.ops import fused_merge as FM
+    from hutoken_tpu_torch.ops import seg_merge as SM
+
+    FM.fused_merge.launches = FM.fused_merge.wide_launches = SM.seg_merge.launches = 0
+
+
+def encode_run(native, docs: list[str], what: str, want_path: str, label: str):
+    """One main-path run through the initialized facade: a checked run,
+    then a timed cold one, the counts zeroed right before each and read
+    right after.  ``want_path`` is the path it must take: "raw" (the
+    segmented kernel), "pipeline" (the fused kernel) or "wide" (the wide
+    fused kernel).  ``native`` is the native engine of the same
+    configuration.  Returns (ids per document, summed launch counts, the
+    largest id)."""
     import torch
 
     import hutoken_tpu_torch as hutoken
     from hutoken_tpu import oracle
+
+    engine = hutoken._get_engine()
+    nbytes = sum(len(d.encode()) for d in docs)
+    zero_launch_counts()
+    got = hutoken.batch_encode(docs)
+    counts = launch_counts()
+    want = native.encode_batch(docs, 8)
+    bad = sum(g != w for g, w in zip(got, want))
+    check(len(got) == len(docs) and bad == 0, f"{what}: {bad} documents differ from native")
+    rng = np.random.default_rng(1)
+    sample = [int(i) for i in rng.choice(len(docs), ORACLE_SAMPLE, replace=False)]
+    check(all(got[i] == oracle.encode(hutoken._ctx, docs[i]) for i in sample), f"{what}: oracle")
+    check(hutoken.batch_decode([got[i] for i in sample]) == [docs[i] for i in sample], "decode round trip")
+    max_id = max(max(g) for g in got if g)
+
+    engine.reset_cache()
+    dev0 = engine.stat_device_bytes
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hutoken.batch_encode(docs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {k: v + launch_counts()[k] for k, v in counts.items()}
+    share = (engine.stat_device_bytes - dev0) / nbytes
+    fused, wide, seg = counts["fused_merge"], counts["fused_merge_wide"], counts["seg_merge"]
+    if want_path == "raw":
+        check(seg > 0, f"{what}: the raw path never launched the segmented kernel")
+        check(share > 0.9, f"{what}: only {share:.4f} of the bytes reached the device")
+        check(engine.stat_host_cause.get("raw_host_chunk", 0) == 0, f"{what}: a chunk went to the host")
+    elif want_path == "wide":
+        check(wide > 0 and fused == 0 and seg == 0, f"{what}: the wide kernel alone must run: {counts}")
+    else:
+        check(fused > 0 and wide == 0 and seg == 0, f"{what}: the word pipeline did not run the fused kernel")
+    core = "raw" if want_path == "raw" else ("pipelined" if engine._native_split_ok else "python")
+    print(f"[{label}] main path {what}: {nbytes / 1e6:.1f} MB, "
+          f"{len(docs)} docs: equal to native (all docs) and oracle ({ORACLE_SAMPLE}); "
+          f"{core} core; cold run {nbytes / 1e6 / dt:.2f} MB/s ({dt:.3f} s); "
+          f"device byte share {share:.4f}; launches fused {fused}, wide {wide}, seg {seg}; "
+          f"max id {max_id}; host bytes by cause {engine.stat_host_cause}")
+    return got, counts, max_id
+
+
+def main_path(device: str, zipf: list[str], unique: list[str], label: str) -> dict:
+    """Phase 5 through the facade; returns each kernel's launches."""
+    import hutoken_tpu_torch as hutoken
     from hutoken_tpu.native import NativeEngine
-    from hutoken_tpu_torch.ops import fused_merge as FM
-    from hutoken_tpu_torch.ops import seg_merge as SM
 
     # (config, corpus name, docs, HUTOKEN_TPU_RAW, path it must take)
     runs = [
@@ -292,51 +388,48 @@ def main_path(device: str, zipf: list[str], unique: list[str], label: str) -> di
         ("big-vocab", "zipf", zipf, "auto", "pipeline"),
         ("big-vocab", "unique", unique, "auto", "raw"),
     ]
-    launches = {"fused_merge": 0, "seg_merge": 0}
+    launches = {"fused_merge": 0, "fused_merge_wide": 0, "seg_merge": 0}
     for config, cname, docs, raw_env, want_path in runs:
         os.environ["HUTOKEN_TPU_RAW"] = raw_env
         vocab, special, merges = fixture_paths(config)
         kw = {"merges_file_path": merges} if merges else {}
         hutoken.initialize(vocab, special, is_byte_encoder=True, device=device, **kw)
-        engine = hutoken._get_engine()
-        nbytes = sum(len(d.encode()) for d in docs)
-        what = f"{config}/{cname} RAW={raw_env}"
+        _got, counts, _max_id = encode_run(NativeEngine(hutoken._ctx), docs,
+                                  f"{config:10s} {cname:6s} RAW={raw_env:4s}", want_path, label)
+        for k, v in counts.items():
+            launches[k] += v
+    os.environ.pop("HUTOKEN_TPU_RAW", None)
+    return launches
 
-        FM.fused_merge.launches = SM.seg_merge.launches = 0
-        got = hutoken.batch_encode(docs)
-        counts = [FM.fused_merge.launches, SM.seg_merge.launches]
-        want = NativeEngine(hutoken._ctx).encode_batch(docs, 8)
-        bad = sum(g != w for g, w in zip(got, want))
-        check(len(got) == len(docs) and bad == 0, f"{what}: {bad} documents differ from native")
-        rng = np.random.default_rng(1)
-        sample = [int(i) for i in rng.choice(len(docs), ORACLE_SAMPLE, replace=False)]
-        check(all(got[i] == oracle.encode(hutoken._ctx, docs[i]) for i in sample), f"{what}: oracle")
-        check(hutoken.batch_decode([got[i] for i in sample]) == [docs[i] for i in sample], "decode round trip")
 
-        engine.reset_cache()
-        dev0 = engine.stat_device_bytes
-        FM.fused_merge.launches = SM.seg_merge.launches = 0
-        torch.cuda.synchronize()
+def wide_main_path(device: str, zipf: list[str], unique: list[str], label: str,
+                   configs: dict) -> int:
+    """Phase 6w: one facade per wide configuration, both corpora encoded
+    under ``HUTOKEN_TPU_RAW=auto`` (the word pipeline with the wide
+    kernel), then their ids decoded on the device; returns the wide
+    kernel's launches."""
+    import hutoken_tpu_torch as hutoken
+    from hutoken_tpu.native import NativeEngine
+
+    launches = 0
+    os.environ["HUTOKEN_TPU_RAW"] = "auto"
+    for config, (vocab, special, merges) in configs.items():
         t0 = time.perf_counter()
-        hutoken.batch_encode(docs)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = [c + n for c, n in zip(counts, (FM.fused_merge.launches, SM.seg_merge.launches))]
-        launches["fused_merge"] += counts[0]
-        launches["seg_merge"] += counts[1]
-        share = (engine.stat_device_bytes - dev0) / nbytes
-        if want_path == "raw":
-            check(counts[1] > 0, f"{what}: the raw path never launched the segmented kernel")
-            check(share > 0.9, f"{what}: only {share:.4f} of the bytes reached the device")
-            check(engine.stat_host_cause.get("raw_host_chunk", 0) == 0, f"{what}: a chunk went to the host")
-        else:
-            check(counts[0] > 0 and counts[1] == 0, f"{what}: the word pipeline did not run the fused kernel")
-        core = "raw" if want_path == "raw" else ("pipelined" if engine._native_split_ok else "python")
-        print(f"[{label}] main path {config:10s} {cname:6s} RAW={raw_env:4s} {nbytes / 1e6:.1f} MB, "
-              f"{len(docs)} docs: equal to native (all docs) and oracle ({ORACLE_SAMPLE}); "
-              f"{core} core; cold run {nbytes / 1e6 / dt:.2f} MB/s ({dt:.3f} s); "
-              f"device byte share {share:.4f}; launches fused {counts[0]}, seg {counts[1]}; "
-              f"host bytes by cause {engine.stat_host_cause}")
+        kw = {"merges_file_path": merges} if merges else {}
+        hutoken.initialize(vocab, special, is_byte_encoder=True, backend="device",
+                           device=device, **kw)
+        hutoken._get_engine()
+        native = NativeEngine(hutoken._ctx)
+        print(f"{config}: facade, engine and native engine built in {time.perf_counter() - t0:.1f} s")
+        check(hutoken._get_engine().dev_tables.wide, f"{config}: the engine holds the wide table")
+        max_ids = []
+        for cname, docs in (("zipf", zipf), ("unique", unique)):
+            ids, counts, max_id = encode_run(native, docs, f"{config:11s} {cname:6s} RAW=auto", "wide", label)
+            launches += counts["fused_merge_wide"]
+            max_ids.append(max_id)
+            decode_run(native, docs, ids, f"{config:11s} {cname:6s}", label)
+        # the unique corpus's random identifiers stay below 0x10000 here
+        check(max(max_ids) >= 0x10000, f"{config}: no id of 0x10000 or more")
     os.environ.pop("HUTOKEN_TPU_RAW", None)
     return launches
 
@@ -379,14 +472,9 @@ def gather_probe(device: str, label: str) -> list[dict]:
 
 def device_decode(device: str, zipf: list[str], unique: list[str], label: str) -> None:
     """Phase 6: device decode through the facade (``backend="device"``)
-    against the native decode of the same ids, and the engine's
-    ``decode_arrays_device``.  ``decode_tokens_blob``'s count is zeroed
-    right before each decode and read right after."""
-    import torch
-
+    of both corpora's native ids under both committed configurations."""
     import hutoken_tpu_torch as hutoken
     from hutoken_tpu.native import NativeEngine
-    from hutoken_tpu_torch.ops import decode as D
 
     for config in ("big-merges", "big-vocab"):
         vocab, special, merges = fixture_paths(config)
@@ -395,53 +483,65 @@ def device_decode(device: str, zipf: list[str], unique: list[str], label: str) -
                            device=device, **kw)
         native = NativeEngine(hutoken._ctx)
         for cname, docs in (("zipf", zipf), ("unique", unique)):
-            what = f"decode {config}/{cname}"
-            ids = native.encode_batch(docs, 8)
-            nbytes = sum(len(d.encode()) for d in docs)
-            walls = []
-            for _run in range(2):  # the first run also builds the table
-                D.decode_tokens_blob.calls = 0
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                got = hutoken.batch_decode(ids)
-                torch.cuda.synchronize()
-                walls.append(time.perf_counter() - t0)
-                check(D.decode_tokens_blob.calls > 0, f"{what}: the device path never ran")
-            engine = hutoken._get_engine()
-            check(engine._prefer_device_decode, f"{what}: the engine prefers the device")
-            native_walls = {}
-            for threads in (1, 8):
-                t0 = time.perf_counter()
-                want = native.decode_batch(ids, threads)
-                native_walls[threads] = time.perf_counter() - t0
-            bad = sum(g != w for g, w in zip(got, want))
-            check(len(got) == len(docs) and bad == 0, f"{what}: {bad} documents differ from native")
-            check(got == docs, f"{what}: the decode differs from the original text")
+            decode_run(native, docs, native.encode_batch(docs, 8), f"{config:10s} {cname:6s}", label)
 
-            flat = np.concatenate([np.asarray(t, dtype=np.int64) for t in ids])
-            offs = np.concatenate(([0], np.cumsum([len(t) for t in ids]))).astype(np.int64)
-            D.decode_tokens_blob_tot.calls = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            blob, boffs = engine.decode_arrays_device(flat, offs)
-            torch.cuda.synchronize()
-            arrays_wall = time.perf_counter() - t0
-            check(isinstance(blob, torch.Tensor) and blob.is_cuda, f"{what}: the blob is on the card")
-            check(D.decode_tokens_blob_tot.calls > 0, f"{what}: decode_arrays_device ran on the card")
-            want_blob, want_offs = native.decode_arrays(flat, offs)
-            host = blob[: int(boffs[-1])].cpu().numpy().tobytes()
-            check(host == want_blob and np.array_equal(boffs, want_offs),
-                  f"{what}: decode_arrays_device differs from native decode_arrays")
-            mb = nbytes / 1e6
-            print(f"[{label}] device decode {config:10s} {cname:6s} {mb:.1f} MB, {len(docs)} docs, "
-                  f"{flat.shape[0]} tokens: equal to native and the text (all docs); "
-                  f"batch_decode {mb / walls[0]:.2f} MB/s first run ({walls[0]:.3f} s), "
-                  f"{mb / walls[1]:.2f} MB/s second ({walls[1]:.3f} s), "
-                  f"decode_tokens_blob calls {D.decode_tokens_blob.calls}; native decode_batch "
-                  f"{mb / native_walls[1]:.2f} MB/s on 1 thread ({native_walls[1]:.3f} s), "
-                  f"{mb / native_walls[8]:.2f} MB/s on 8 ({native_walls[8]:.3f} s); "
-                  f"decode_arrays_device {mb / arrays_wall:.2f} MB/s ({arrays_wall:.3f} s), "
-                  f"bytes and offsets exact")
+
+def decode_run(native, docs: list[str], ids: list[list[int]], what: str, label: str) -> None:
+    """Decode ``ids`` through the initialized facade against the native
+    decode of the same ids, and the engine's ``decode_arrays_device``.
+    ``decode_tokens_blob``'s count is zeroed right before each decode and
+    read right after."""
+    import torch
+
+    import hutoken_tpu_torch as hutoken
+    from hutoken_tpu_torch.ops import decode as D
+
+    what = f"decode {what}"
+    nbytes = sum(len(d.encode()) for d in docs)
+    walls = []
+    for _run in range(2):  # the first run also builds the table
+        D.decode_tokens_blob.calls = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = hutoken.batch_decode(ids)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        check(D.decode_tokens_blob.calls > 0, f"{what}: the device path never ran")
+    engine = hutoken._get_engine()
+    check(engine._prefer_device_decode, f"{what}: the engine prefers the device")
+    native_walls = {}
+    for threads in (1, 8):
+        t0 = time.perf_counter()
+        want = native.decode_batch(ids, threads)
+        native_walls[threads] = time.perf_counter() - t0
+    bad = sum(g != w for g, w in zip(got, want))
+    check(len(got) == len(docs) and bad == 0, f"{what}: {bad} documents differ from native")
+    check(got == docs, f"{what}: the decode differs from the original text")
+
+    flat = np.concatenate([np.asarray(t, dtype=np.int64) for t in ids])
+    offs = np.concatenate(([0], np.cumsum([len(t) for t in ids]))).astype(np.int64)
+    D.decode_tokens_blob_tot.calls = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blob, boffs = engine.decode_arrays_device(flat, offs)
+    torch.cuda.synchronize()
+    arrays_wall = time.perf_counter() - t0
+    check(isinstance(blob, torch.Tensor) and blob.is_cuda, f"{what}: the blob is on the card")
+    check(D.decode_tokens_blob_tot.calls > 0, f"{what}: decode_arrays_device ran on the card")
+    want_blob, want_offs = native.decode_arrays(flat, offs)
+    host = blob[: int(boffs[-1])].cpu().numpy().tobytes()
+    check(host == want_blob and np.array_equal(boffs, want_offs),
+          f"{what}: decode_arrays_device differs from native decode_arrays")
+    mb = nbytes / 1e6
+    print(f"[{label}] device {what} {mb:.1f} MB, {len(docs)} docs, "
+          f"{flat.shape[0]} tokens: equal to native and the text (all docs); "
+          f"batch_decode {mb / walls[0]:.2f} MB/s first run ({walls[0]:.3f} s), "
+          f"{mb / walls[1]:.2f} MB/s second ({walls[1]:.3f} s), "
+          f"decode_tokens_blob calls {D.decode_tokens_blob.calls}; native decode_batch "
+          f"{mb / native_walls[1]:.2f} MB/s on 1 thread ({native_walls[1]:.3f} s), "
+          f"{mb / native_walls[8]:.2f} MB/s on 8 ({native_walls[8]:.3f} s); "
+          f"decode_arrays_device {mb / arrays_wall:.2f} MB/s ({arrays_wall:.3f} s), "
+          f"bytes and offsets exact")
 
 
 def profile_runs(device: str, unique: list[str], label: str) -> None:
@@ -524,7 +624,8 @@ def main() -> int:
     print(f"corpora built in {time.perf_counter() - t0:.1f} s")
 
     # 3. kernel vs plain
-    kv = kernel_vs_plain(device, unique, label)
+    kv = kernel_vs_plain(device, unique, label,
+                         {n: fixture_paths(n) for n in ("small", "big-vocab", "big-merges")})
     sv = seg_kernel_vs_plain(device, unique, label)
 
     # 4. gather probe; counts are zeroed inside, right before the run
@@ -534,12 +635,22 @@ def main() -> int:
 
     # 5. main path; counts are zeroed inside, right before each run
     launches = main_path(device, zipf, unique, label)
-    check(all(launches.values()), f"the main path launched both kernels: {launches}")
+    check(launches["fused_merge"] > 0 and launches["seg_merge"] > 0 and not launches["fused_merge_wide"],
+          f"the main path launched both narrow kernels and not the wide one: {launches}")
 
     # 6. device decode
     t0 = time.perf_counter()
     device_decode(device, zipf, unique, label)
     print(f"device decode took {time.perf_counter() - t0:.1f} s")
+
+    # 6w. the wide vocabulary; counts are zeroed inside, right before each run
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="hutoken-wide-") as wide_dir:
+        wide = wide_paths(wide_dir)
+        kvw = kernel_vs_plain(device, zipf, label, wide)
+        wide_launches = wide_main_path(device, zipf, unique, label, wide)
+    check(wide_launches > 0, "the wide main path launched the wide kernel")
+    print(f"wide vocabulary phases took {time.perf_counter() - t0:.1f} s")
 
     # 7. profile
     profile_runs(device, unique, label)
@@ -558,6 +669,19 @@ def main() -> int:
             "plain_ms": kv["plain_ms"]["big-merges"],
             "ms_by_table": kv["ms"],
             "plain_ms_by_table": kv["plain_ms"],
+        },
+        {
+            "name": "fused_merge",
+            "variant": "wide",
+            "route": "cuda",
+            "source": "hutoken_tpu_torch/csrc/fused_merge.cu",
+            "replaces": "hutoken_tpu/ops/rmatrix.py:231",
+            "launches": wide_launches,
+            "max_abs_err": kvw["max_abs_err"],
+            "ms": kvw["ms"]["wide-merges"],
+            "plain_ms": kvw["plain_ms"]["wide-merges"],
+            "ms_by_table": kvw["ms"],
+            "plain_ms_by_table": kvw["plain_ms"],
         },
         {
             "name": "seg_merge",

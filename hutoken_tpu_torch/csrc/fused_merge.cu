@@ -19,6 +19,16 @@
 // latency.  The TPU kernel's lane-bucketed partial table and its 0x8000
 // divergence flag existed for the VMEM budget; probing the full table
 // makes every word exact, and none is flagged.
+//
+// The wide variant (ht_fused_merge_wide) is the same kernel on the wide
+// pair table of vocabularies whose ids or ranks pass 16 bits.  It
+// replaces what the JAX package runs for those words on the TPU: not a
+// Pallas kernel but the XLA R-matrix program
+// (hutoken_tpu/ops/rmatrix.py::_merge_bytes_rmatrix and
+// _merge_bytes_rmatrix_merges), which resolved every span of a word by
+// hashing because the TPU's gather ran on its scalar core.  Here a
+// probe step is one 16-byte load from L2, so the probe itself serves
+// those vocabularies, in the same greedy order.
 
 #include <cstdint>
 
@@ -30,8 +40,9 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;
 
+template <class Table>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-fused_merge_kernel(ht::PairTable table, const int32_t* __restrict__ byte_seed,
+fused_merge_kernel(Table table, const int32_t* __restrict__ byte_seed,
                    const uint8_t* __restrict__ raw,
                    const int32_t* __restrict__ lens, int64_t num_words,
                    int width, int32_t* __restrict__ out,
@@ -52,6 +63,17 @@ fused_merge_kernel(ht::PairTable table, const int32_t* __restrict__ byte_seed,
   if (lane == 0) counts[w] = n;
 }
 
+template <class Table>
+int launch(const Table& table, const int32_t* byte_seed, const uint8_t* raw,
+           const int32_t* lens, int64_t num_words, int32_t width,
+           int32_t* out, int32_t* counts, void* stream) {
+  const int64_t blocks = (num_words + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  fused_merge_kernel<<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      table, byte_seed, raw, lens, num_words, width, out, counts);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int ht_fused_merge(const int32_t* pkey, const int32_t* pval,
@@ -63,9 +85,21 @@ extern "C" int ht_fused_merge(const int32_t* pkey, const int32_t* pval,
                               int32_t* counts, void* stream) {
   const ht::PairTable table{pkey, pval, static_cast<unsigned>(cap_mask),
                             probe_len, minsuper, minsuper_len};
-  const int64_t blocks = (num_words + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  fused_merge_kernel<<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      table, byte_seed, raw, lens, num_words, width, out, counts);
-  return static_cast<int>(cudaGetLastError());
+  return launch(table, byte_seed, raw, lens, num_words, width, out, counts,
+                stream);
+}
+
+// slots: int32 [C, 4] (left, right, rank, merged), 16-byte aligned
+extern "C" int ht_fused_merge_wide(const int32_t* slots, int64_t cap_mask,
+                                   int32_t probe_len, const int32_t* byte_seed,
+                                   const int32_t* minsuper,
+                                   int32_t minsuper_len, const uint8_t* raw,
+                                   const int32_t* lens, int64_t num_words,
+                                   int32_t width, int32_t* out,
+                                   int32_t* counts, void* stream) {
+  const ht::WidePairTable table{reinterpret_cast<const int4*>(slots),
+                                static_cast<unsigned>(cap_mask), probe_len,
+                                minsuper, minsuper_len};
+  return launch(table, byte_seed, raw, lens, num_words, width, out, counts,
+                stream);
 }

@@ -2,8 +2,8 @@
 // fused merge (fused_merge.cu) and the segmented merge (seg_merge.cu).
 //
 // Lane i holds the id at alive position i of a word of at most 32 ids.
-// Each round every lane with a right neighbour probes the FULL packed
-// pair table in global memory (open addressing, linear probing);
+// Each round every lane with a right neighbour probes the FULL pair
+// table in global memory (open addressing, linear probing);
 // __reduce_min_sync finds the word's leftmost minimum-rank pair as the
 // minimum of rank * 32 + position, __shfl_sync hands each lane its
 // neighbours' rank and minsuper bound, and __ballot_sync/__popc compact
@@ -12,9 +12,17 @@
 // byte-exact with the sequential greedy order
 // (hutoken_tpu/oracle.py::encode_word).
 //
+// Two table layouts (hutoken_tpu_torch/tables.py DeviceTables), one
+// type each with a device lookup() and its own rank sentinel: the narrow
+// PairTable (16-bit ids and ranks packed in two int32 words a slot) and
+// the WidePairTable (one 16-byte slot of four int32 for vocabularies
+// past 16 bits).  merge_word is instantiated per type.
+//
 // What bounds it: the latency of the dependent L2 reads per round (key,
-// then value, then minsuper), times the number of rounds.  The table
-// stays in the 50 MB L2 (4 MB of key + value for a 29,509-rule vocab).
+// then value, then minsuper; one read a probe step on the wide table),
+// times the number of rounds.  The tables stay in the 50 MB L2 (4 MB of
+// key + value for a 29,509-rule vocab, 4-8 MB of wide slots for a
+// 100,256-id one).
 
 #pragma once
 
@@ -23,19 +31,7 @@
 namespace ht {
 
 constexpr unsigned kFullMask = 0xffffffffu;
-// rank sentinel: real ranks fit 16 bits (checked when the table is built)
-constexpr int kInfRank = 0x10000;
 constexpr unsigned kInfKey = 0x7fffffffu;
-
-// hutoken_tpu_torch/tables.py DeviceTables, as raw device pointers.
-struct PairTable {
-  const int32_t* pkey;  // left << 16 | right, -1 = empty slot
-  const int32_t* pval;  // rank << 16 | merged id
-  unsigned cap_mask;
-  int probe_len;
-  const int32_t* minsuper;  // nullptr: one merge per word per round
-  int minsuper_len;
-};
 
 // tables._mix_hash: uint32 multiply-xorshift with LOGICAL shifts.
 __device__ __forceinline__ unsigned mix_hash(unsigned a, unsigned b) {
@@ -47,17 +43,82 @@ __device__ __forceinline__ unsigned mix_hash(unsigned a, unsigned b) {
   return h;
 }
 
+// The narrow packed table, as raw device pointers.
+struct PairTable {
+  const int32_t* pkey;  // left << 16 | right, -1 = empty slot
+  const int32_t* pval;  // rank << 16 | merged id
+  unsigned cap_mask;
+  int probe_len;
+  const int32_t* minsuper;  // nullptr: one merge per word per round
+  int minsuper_len;
+
+  // rank sentinel: real ranks fit 16 bits (checked when the table is built)
+  static constexpr int kInfRank = 0x10000;
+
+  __device__ __forceinline__ void lookup(unsigned a, unsigned b, int& rank,
+                                         int& merged) const {
+    const int key = static_cast<int>((a << 16) | (b & 0xFFFFu));
+    unsigned slot = mix_hash(a, b) & cap_mask;
+    for (int i = 0; i < probe_len; ++i) {
+      const int k = __ldg(pkey + slot);
+      if (k == key) {
+        const int v = __ldg(pval + slot);
+        rank = (v >> 16) & 0xFFFF;
+        merged = v & 0xFFFF;
+        return;
+      }
+      // no deletions, so a key is never stored past an empty slot
+      if (k == -1) return;
+      slot = (slot + 1) & cap_mask;
+    }
+  }
+};
+
+// The wide table: slot s is the int4 (left, right, rank, merged), left
+// -1 when empty.  One 16-byte __ldg reads key and value together, and
+// both ids compare in full 32 bits.
+struct WidePairTable {
+  const int4* slots;
+  unsigned cap_mask;
+  int probe_len;
+  const int32_t* minsuper;
+  int minsuper_len;
+
+  // ranks stop at 2^26 - 1 (checked when the table is built), so the
+  // candidate rank * 32 + lane (lane <= 30) stays below kInfKey; 0x10000
+  // is a real rank here
+  static constexpr int kInfRank = 0x7fffffff;
+
+  __device__ __forceinline__ void lookup(unsigned a, unsigned b, int& rank,
+                                         int& merged) const {
+    const int ia = static_cast<int>(a);
+    const int ib = static_cast<int>(b);
+    unsigned slot = mix_hash(a, b) & cap_mask;
+    for (int i = 0; i < probe_len; ++i) {
+      const int4 s = __ldg(slots + slot);
+      if (s.x == ia && s.y == ib) {
+        rank = s.z;
+        merged = s.w;
+        return;
+      }
+      if (s.x == -1) return;
+      slot = (slot + 1) & cap_mask;
+    }
+  }
+};
+
 // Runs the fixed point of the word whose n ids sit in lanes 0..n-1 (id
 // = -1 elsewhere).  Returns the final count n'; lanes 0..n'-1 then hold
 // the surviving ids in order, the other lanes -1.  With kCarry, each
 // lane's `tag` travels with its id through every compaction (the
 // segmented merge carries the byte offset of each token's first byte).
 // stage_id and stage_tag are 32 ints of shared memory owned by the warp.
-template <bool kCarry>
-__device__ __forceinline__ int merge_word(const PairTable& t, int lane, int n,
+template <bool kCarry, class Table>
+__device__ __forceinline__ int merge_word(const Table& t, int lane, int n,
                                           int& id, int& tag,
                                           int32_t* stage_id,
                                           int32_t* stage_tag) {
+  constexpr int kInfRank = Table::kInfRank;
   while (n >= 2) {
     // probe pair (lane, lane + 1)
     const int right = __shfl_down_sync(kFullMask, id, 1);
@@ -65,22 +126,8 @@ __device__ __forceinline__ int merge_word(const PairTable& t, int lane, int n,
     int merged = -1;
     int msup = 0;
     if (lane + 1 < n) {
-      const unsigned a = static_cast<unsigned>(id);
-      const unsigned b = static_cast<unsigned>(right);
-      const int key = static_cast<int>((a << 16) | (b & 0xFFFFu));
-      unsigned slot = mix_hash(a, b) & t.cap_mask;
-      for (int i = 0; i < t.probe_len; ++i) {
-        const int k = __ldg(t.pkey + slot);
-        if (k == key) {
-          const int v = __ldg(t.pval + slot);
-          rank = (v >> 16) & 0xFFFF;
-          merged = v & 0xFFFF;
-          break;
-        }
-        // no deletions, so a key is never stored past an empty slot
-        if (k == -1) break;
-        slot = (slot + 1) & t.cap_mask;
-      }
+      t.lookup(static_cast<unsigned>(id), static_cast<unsigned>(right), rank,
+               merged);
       if (t.minsuper != nullptr && rank < t.minsuper_len) {
         msup = __ldg(t.minsuper + rank);
       }

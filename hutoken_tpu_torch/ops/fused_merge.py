@@ -3,8 +3,12 @@ CUDA kernel ``csrc/fused_merge.cu`` and its plain PyTorch twin.
 
 The kernel replaces ``hutoken_tpu/ops/pallas_merge.py::_kernel`` /
 ``_kernel_body``; the source file says how it is laid out for Hopper.
-:func:`fused_merge` launches it for CUDA tensors and runs the twin only
-for CPU tensors: there is no fallback from one to the other.
+Its wide variant, the same kernel on the wide pair table, serves
+vocabularies whose ids or ranks pass 16 bits, where the JAX package runs
+the R-matrix program (``hutoken_tpu/ops/rmatrix.py``).
+:func:`fused_merge` launches the variant of the table's layout for CUDA
+tensors and runs the twin only for CPU tensors: there is no fallback
+from one to the other.
 
 The library is built with ``nvcc`` at first use into ``_build/`` (see
 ``ops/build.py``) and bound with ``ctypes``.
@@ -18,7 +22,7 @@ import functools
 import torch
 
 from .build import build_library
-from .merge import INF_RANK, compact_output, probe_pairs_packed
+from .merge import INF_RANK, compact_output, probe_pairs
 
 MAX_WORD = 32  # the warp width: one lane per byte
 
@@ -39,6 +43,11 @@ def _library() -> ctypes.CDLL:
         p, p, ctypes.c_int32,  # byte_seed, minsuper, minsuper_len
         p, p, ctypes.c_int64, ctypes.c_int32,  # raw, lens, num_words, width
         p, p, p,  # out, counts, stream
+    ]
+    lib.ht_fused_merge_wide.restype = ctypes.c_int
+    lib.ht_fused_merge_wide.argtypes = [
+        p, ctypes.c_int64, ctypes.c_int32,  # slots, cap_mask, probe_len
+        *lib.ht_fused_merge.argtypes[4:],
     ]
     return lib
 
@@ -64,8 +73,10 @@ def fused_merge(tab, raw: torch.Tensor, lens: torch.Tensor):
     word's tokens left-compacted, -1 after them.
 
     A CUDA tensor launches the kernel on the current stream without
-    synchronising (and adds one to ``fused_merge.launches``); a CPU
-    tensor runs :func:`fused_merge_plain`.
+    synchronising and adds one to ``fused_merge.launches``, or, on a
+    wide table, launches the wide variant and adds one to
+    ``fused_merge.wide_launches``; a CPU tensor runs
+    :func:`fused_merge_plain`.
     """
     _check_inputs(tab, raw, lens)
     if raw.device.type == "cpu":
@@ -80,29 +91,38 @@ def fused_merge(tab, raw: torch.Tensor, lens: torch.Tensor):
     raw = raw.contiguous()
     lens = lens.contiguous()
     ms = tab.minsuper
+    lib = _library()
     with torch.cuda.device(raw.device):
         stream = torch.cuda.current_stream(raw.device).cuda_stream
-        rc = _library().ht_fused_merge(
-            tab.pkey.data_ptr(), tab.pval.data_ptr(), tab.cap_mask, tab.probe_len,
-            tab.byte_seed.data_ptr(),
+        rest = (
+            tab.cap_mask, tab.probe_len, tab.byte_seed.data_ptr(),
             ms.data_ptr() if ms is not None else None,
             ms.numel() if ms is not None else 0,
             raw.data_ptr(), lens.data_ptr(), W, L,
             out.data_ptr(), counts.data_ptr(), stream,
         )
+        if tab.wide:
+            rc = lib.ht_fused_merge_wide(tab.slots.data_ptr(), *rest)
+        else:
+            rc = lib.ht_fused_merge(tab.pkey.data_ptr(), tab.pval.data_ptr(), *rest)
     if rc != 0:
-        raise RuntimeError(f"fused_merge kernel launch failed: CUDA error {rc}")
-    fused_merge.launches += 1
+        variant = "wide " if tab.wide else ""
+        raise RuntimeError(f"fused_merge {variant}kernel launch failed: CUDA error {rc}")
+    if tab.wide:
+        fused_merge.wide_launches += 1
+    else:
+        fused_merge.launches += 1
     return out, counts
 
 
 fused_merge.launches = 0
+fused_merge.wide_launches = 0
 
 
 def fused_merge_plain(tab, raw: torch.Tensor, lens: torch.Tensor):
     """The kernel's rounds in plain PyTorch on [W, L] tensors: same
-    probe, same minimum, same multi-merge guard, same per-round
-    compaction.  Runs on any device; :func:`fused_merge` uses it for CPU
+    probe (of the table's layout), same minimum, same multi-merge guard,
+    same per-round compaction.  Runs on any device; :func:`fused_merge` uses it for CPU
     tensors, and the kernel is held against it on the card."""
     ids, n, _tags = merge_rounds(tab, raw, lens)
     return ids, n
@@ -123,7 +143,7 @@ def merge_rounds(tab, raw: torch.Tensor, lens: torch.Tensor, tags=None):
     while True:
         # PAD (-1) right neighbours make the probe report INF_RANK
         right = torch.cat([ids[:, 1:], torch.full_like(ids[:, :1], -1)], dim=1)
-        rank, merged = probe_pairs_packed(tab, ids, right)
+        rank, merged = probe_pairs(tab, ids, right)
         rank = rank.to(torch.int64)
         finite = rank < INF_RANK
         cand = torch.where(finite, rank * MAX_WORD + col, INF_RANK)

@@ -1,5 +1,7 @@
 """The greedy BPE merge fixed point in PyTorch (port of
-``hutoken_tpu/ops/merge.py``, packed-table mode only).
+``hutoken_tpu/ops/merge.py``: the packed-table and the wide-table
+probes; the one-hot MXU probe targets the TPU's matrix unit and is not
+ported).
 
 Per round every word applies its single (rank, leftmost)-minimum pair,
 which is exactly the sequential greedy order of the reference
@@ -7,8 +9,9 @@ which is exactly the sequential greedy order of the reference
 words of 33-128 bytes and char-mode id blocks on any device, and they
 are the probe the fused kernel's plain twin reuses.
 
-The packed table stores ids and ranks in 16 bits; ``device_tables``
-refuses vocabularies that do not fit.
+The narrow packed table stores ids and ranks in 16 bits; vocabularies
+that do not fit get the wide table (``tables.DeviceTables``), and
+:func:`probe_pairs` picks the probe by the table's layout.
 """
 
 from __future__ import annotations
@@ -57,6 +60,11 @@ def probe_pairs_packed(tab, a: torch.Tensor, b: torch.Tensor):
     has no rule or either side is PAD (-1).  Port of
     ``_probe_pairs_packed`` (merge.py:74): one key gather per probe step,
     one value gather at the hit slot."""
+    if tab.pkey is None:
+        raise ValueError(
+            "a wide pair table has no packed keys (a 16-bit key would alias "
+            "(0x10001, 5) with (1, 5)): use probe_pairs_wide"
+        )
     h = hash_slots(a, b, tab.cap_mask)
     key = pack_key(a, b)
     found = torch.zeros(a.shape, dtype=torch.bool, device=a.device)
@@ -73,6 +81,32 @@ def probe_pairs_packed(tab, a: torch.Tensor, b: torch.Tensor):
     return rank.to(torch.int32), merged.to(torch.int32)
 
 
+def probe_pairs_wide(tab, a: torch.Tensor, b: torch.Tensor):
+    """:func:`probe_pairs_packed` on the wide table's ``[C, 4]`` slots,
+    comparing both ids in full 32 bits.  Port of ``probe_pairs``
+    (merge.py:104) in ``MODE_PROBE``, with the same hash and the same
+    (INF_RANK, -1) for a miss or a PAD side."""
+    h = hash_slots(a, b, tab.cap_mask)
+    found = torch.zeros(a.shape, dtype=torch.bool, device=a.device)
+    slot_hit = torch.zeros(a.shape, dtype=torch.int64, device=a.device)
+    for i in range(tab.probe_len):
+        slot = (h + i) & tab.cap_mask
+        key = tab.slots[slot]
+        hit = ~found & (key[..., 0] == a) & (key[..., 1] == b)
+        slot_hit = torch.where(hit, slot, slot_hit)
+        found |= hit
+    v = tab.slots[slot_hit]
+    valid = found & (a >= 0) & (b >= 0)
+    rank = torch.where(valid, v[..., 2], INF_RANK)
+    merged = torch.where(valid, v[..., 3], -1)
+    return rank.to(torch.int32), merged.to(torch.int32)
+
+
+def probe_pairs(tab, a: torch.Tensor, b: torch.Tensor):
+    """The probe of ``tab``'s layout: wide or narrow packed."""
+    return (probe_pairs_wide if tab.wide else probe_pairs_packed)(tab, a, b)
+
+
 def _shift_left(x: torch.Tensor, fill: int) -> torch.Tensor:
     """x[:, 1:] with ``fill`` appended: column i holds x[:, i + 1]."""
     return torch.cat([x[:, 1:], torch.full_like(x[:, :1], fill)], dim=1)
@@ -86,7 +120,7 @@ def merge_fixed_point(tab, ids: torch.Tensor) -> torch.Tensor:
     W, L = ids.shape
     col = torch.arange(L, device=ids.device)
     rows = torch.arange(W, device=ids.device)
-    ranks, merged = probe_pairs_packed(tab, ids, _shift_left(ids, -1))
+    ranks, merged = probe_pairs(tab, ids, _shift_left(ids, -1))
     while True:
         min_rank = ranks.min(dim=1).values
         active = min_rank < INF_RANK
@@ -105,9 +139,7 @@ def merge_fixed_point(tab, ids: torch.Tensor) -> torch.Tensor:
         # re-probe the two pairs the merge touched: (p-1, p) and (p, p+1)
         left = torch.where(p > 0, ids[rows, (p - 1).clamp(min=0)], -1)
         right = torch.where(p + 1 <= L - 1, ids[rows, (p + 1).clamp(max=L - 1)], -1)
-        r2, m2 = probe_pairs_packed(
-            tab, torch.stack([left, m]), torch.stack([m, right])
-        )
+        r2, m2 = probe_pairs(tab, torch.stack([left, m]), torch.stack([m, right]))
         before = (col[None, :] == (p - 1)[:, None]) & active[:, None]
         ranks = torch.where(before, r2[0][:, None], torch.where(at, r2[1][:, None], ranks))
         merged = torch.where(before, m2[0][:, None], torch.where(at, m2[1][:, None], merged))
@@ -144,13 +176,15 @@ def seed_from_bytes(byte_seed: torch.Tensor, raw: torch.Tensor, lens: torch.Tens
 
 
 def merge_words_packed(tab, ids: torch.Tensor, u16_out: bool) -> torch.Tensor:
-    """Fixed point over an id block, in the packed layout (merge.py:377)."""
+    """Fixed point over an id block, in the packed output layout
+    (merge.py:377), on either table layout."""
     return compact_output(merge_fixed_point(tab, ids), u16_out)
 
 
 def merge_words_from_bytes_packed(
     tab, raw: torch.Tensor, lens: torch.Tensor, u16_out: bool
 ) -> torch.Tensor:
-    """Byte-mode fixed point in the packed layout (merge.py:402)."""
+    """Byte-mode fixed point in the packed output layout (merge.py:402),
+    on either table layout."""
     ids = seed_from_bytes(tab.byte_seed, raw, lens)
     return compact_output(merge_fixed_point(tab, ids), u16_out)

@@ -50,6 +50,9 @@ def _check_inputs(tab, chunk, word_start, word_len) -> None:
         raise ValueError("word_start and word_len differ in length")
     if tab.byte_seed is None:
         raise ValueError("the segmented merge needs a byte-level table (byte_seed)")
+    if tab.wide:
+        # as in the JAX engine, a vocabulary past 16 bits takes no raw path
+        raise ValueError("the segmented merge takes the narrow packed table only")
     for t in (chunk, word_start, word_len):
         if t.device != tab.device:
             raise ValueError(f"input on {t.device}, tables on {tab.device}")

@@ -141,8 +141,27 @@ def test_build_minsuper_matches_reference(name):
     assert want is not None and np.array_equal(got, want)
 
 
-def test_device_tables_refuse_wide_ids():
-    pt = build_pair_table({(70000, 1): (0, 70001)})
-    enc = types.SimpleNamespace(pair_table=pt)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        device_tables(enc, None, "cpu")
+def _wide_enc(pairs):
+    return types.SimpleNamespace(pair_table=build_pair_table(pairs), pairs=pairs, byte_seed_ids=None)
+
+
+def test_device_tables_build_a_wide_table_for_wide_ids():
+    """Ids past 16 bits get the wide [C, 4] table; its probe finds the
+    pair and misses the pair its 16-bit truncation would alias."""
+    enc = _wide_enc({(70000, 1): (0, 70001)})
+    assert not enc.pair_table.packed_ok
+    tab = device_tables(enc, None, "cpu")
+    assert tab.wide and tab.pkey is None and tuple(tab.slots.shape[1:]) == (4,)
+    a = torch.tensor([70000, 70000 & 0xFFFF, 70000, -1], dtype=torch.int32)
+    b = torch.tensor([1, 1, 2, 1], dtype=torch.int32)
+    rank, merged = TM.probe_pairs(tab, a, b)
+    assert rank.tolist() == [0] + [TM.INF_RANK] * 3
+    assert merged.tolist() == [70001, -1, -1, -1]
+
+
+def test_device_tables_refuse_ranks_past_the_kernel_bound():
+    """The merge kernel's candidate rank * 32 + lane is 32-bit: a rank of
+    2^26 or more is refused, with the reason."""
+    device_tables(_wide_enc({(70000, 1): ((1 << 26) - 1, 70001)}), None, "cpu")
+    with pytest.raises(ValueError, match="rank 67108864 does not fit the merge kernel"):
+        device_tables(_wide_enc({(70000, 1): (1 << 26, 70001)}), None, "cpu")
