@@ -3,22 +3,33 @@
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA device
 
-It imports nothing of JAX.  Phases, each failing the run on its own:
+It imports nothing of JAX and nothing of the JAX package ``hutoken_tpu``
+(it keeps its own copies of the benchmark corpora and of the generated
+wide vocabulary, and reads the committed fixture files), and checks at
+its end that neither was loaded.  Phases, each failing the run on its
+own:
 
 1. device: the card's name and power limit, torch and CUDA versions,
    and whether the native host library loaded;
 2. build: compiles the three kernel sources of ``hutoken_tpu_torch/csrc``
    (one ``nvcc`` each, started together);
-3. kernel vs plain, on the same CUDA tensors, exact equality:
-   the fused merge for the small, big-vocab and big-merges tables at
-   widths 8, 16 and 32, timed at the word pipeline's block shape
-   (16,384 words x 32 bytes); the segmented merge on mixed chunks
-   (ASCII, Hungarian accents, words of 1-32 and over 32 bytes, document
-   resets) for the same tables, timed on one raw-path chunk
-   (``HUTOKEN_TPU_RAW_C``, 4 MB) of the unique corpus;
+3. kernel vs plain, on the same CUDA tensors, exact equality on the
+   prefix the host reads: the fused merge, which writes the packed
+   layout, against ``compact_output`` of its plain twin for the small,
+   big-vocab and big-merges tables at widths 8, 16 and 32 (rows of
+   length 0 and 1 among long rows, with both of the kernel's
+   compactions), each width timed on 16,384 corpus words beside
+   ``compact_output`` alone on the same block (what the padded kernel of
+   earlier versions needed after it); the segmented merge on mixed
+   chunks (ASCII, Hungarian accents, words of 1-32 and over 32 bytes,
+   document resets) and on a chunk whose every 32-word run holds every
+   length 0-32 with an 8-byte word that merges for more rounds than the
+   other short words, timed on one raw-path chunk (4 MB) of the unique
+   corpus.  Each kernel's bound counts the bytes it must move, the pair
+   table's slots as the plain run probes them;
 4. gather probe: ``hutoken_tpu_torch.profile_gather`` at every shape of
    the three TPU gather-profiling scripts, each gather kernel equal to
-   its twin (tolerance 0), kernel and twin times and M lookups/s;
+   its twin (tolerance 0), kernel, twin and one-PyTorch-call times;
 5. main path: the facade's ``initialize`` + ``batch_encode`` on the
    committed 23,096-id fixture (merges.txt and string-path configs)
    over a 24 MB Zipf corpus and an 8 MB high-entropy corpus.  Under
@@ -26,39 +37,40 @@ It imports nothing of JAX.  Phases, each failing the run on its own:
    (segmented kernel launched, nearly every byte on the device) and the
    Zipf runs the word pipeline (fused kernel launched); big-merges /
    unique runs once more with ``HUTOKEN_TPU_RAW=0``.  Every document
-   must equal the native host engine, a sample the scalar oracle; a
-   cold run's MB/s and the share of corpus bytes sent to the device
-   print beside the card's name and power limit; a sample round-trips
-   through ``batch_decode``;
+   must equal the port's native host engine, a sample the port's scalar
+   oracle; a cold run's MB/s and the share of corpus bytes sent to the
+   device print beside the card's name and power limit; a sample
+   round-trips through ``batch_decode``;
 6. device decode: the facade with ``backend="device"`` decodes the ids
    of both corpora under both configs; every document must equal the
    native decode and the original text, the device path must have run,
    and decode MB/s prints beside the native host decode's; the engine's
    ``decode_arrays_device`` must return a CUDA blob equal byte for byte
    to the native ``decode_arrays``;
-6w. the generated 100,256-id vocabulary
-   (``tests/torch_parity.py::write_wide_fixture``, string and merges
-   paths, written to a temporary directory): the wide fused kernel
-   against its twin as in phase 3, on Zipf corpus words (which must give
-   ids of 0x10000 or more); then one facade ``initialize``
-   (``backend="device"``) per configuration; ``batch_encode`` of both
-   corpora under ``HUTOKEN_TPU_RAW=auto`` must take the word pipeline
-   with the wide kernel (never the raw path: the JAX engine has none for
-   such a vocabulary) and equal the native engine on every document and
-   the oracle on a sample, and the two runs must hold ids of 0x10000 or
-   more between them (the unique corpus's random identifiers do not
-   reach them); then device decode of the same ids as in phase 6;
+6w. a generated 100,256-id vocabulary (:func:`write_wide_fixture`,
+   string and merges paths, written to a temporary directory): the wide
+   fused kernel against its twin as in phase 3, on Zipf corpus words
+   (which must give ids of 0x10000 or more); then one facade
+   ``initialize`` (``backend="device"``) per configuration;
+   ``batch_encode`` of both corpora under ``HUTOKEN_TPU_RAW=auto`` must
+   take the word pipeline with the wide kernel (never the raw path) and
+   equal the native engine on every document and the oracle on a
+   sample; then device decode of the same ids as in phase 6;
 7. profile: one more cold run of big-merges / unique on each encode path
-   under ``torch.profiler``: the device busy share, the top kernels, and
-   the run's wall through ``encode_batch_arrays`` (no per-document lists).
+   under ``torch.profiler``: the device busy share, the top kernels, no
+   ``compact_output`` span on the word pipeline, and the run's wall
+   through ``encode_batch_arrays``.
 
 The last two lines are the kernel summary and ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import random
+import string
 import sys
 import tempfile
 import time
@@ -68,7 +80,6 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
-sys.path.insert(0, os.path.join(HERE, "tests"))
 
 ZIPF_MB = 24
 UNIQUE_MB = 8
@@ -77,7 +88,181 @@ CHECK_WORDS = 12345  # odd on purpose: the kernel takes any word count
 ORACLE_SAMPLE = 40
 RAW_CHUNK = 1 << 22  # HUTOKEN_TPU_RAW_C's default: the raw path's chunk bytes
 MIXED_WORDS = 40000  # words per mixed check chunk
+LENGTH_RUNS = 2000  # 32-word runs in the every-length chunk
 HIGH_BYTES = bytes(range(0x20, 0x7F)) + bytes(range(0x80, 0x100))
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+FIXTURES = os.path.join(HERE, "tests", "fixtures")
+WIDE_VOCAB_SIZE = 100256  # cl100k_base's id count
+
+# ------------------------------------------------------------- inputs
+# Copies of tests/fixture_tools.py's base text and corpus and of
+# bench.py's two corpus builders, which load the JAX package;
+# tests/test_torch_host.py holds each equal to its original.
+
+BASE_TEXT = (
+    "A gyors barna róka átugrik a lusta kutya fölött. "
+    "Az őszi szél végigsöpört a Duna-parton, és a fák levelei "
+    "aranyszínűre váltak. Öt szűk ütközőpont maradt a hídon. "
+    "The quick brown fox jumps over the lazy dog. "
+    "Programming languages map bytes to tokens with byte pair encoding. "
+    "Számítógépes nyelvészet: a tokenizálás a szöveg feldolgozásának "
+    "első lépése. Különböző írásrendszerek — például a kínai 中文 vagy "
+    "az emoji 🙂 — bájtsorozatokként jelennek meg. "
+    "Egy, kettő, három, négy, öt, hat, hét, nyolc, kilenc, tíz. "
+    "1234567890 42 2026 3.14159 0xFF. "
+    "   multiple   spaces\tand\nnewlines\r\nare whitespace too. "
+    "Árvíztűrő tükörfúrógép. ÁRVÍZTŰRŐ TÜKÖRFÚRÓGÉP. "
+)
+
+
+def make_corpus() -> str:
+    """Seeded word-shuffled expansions of the base text."""
+    rng = random.Random(42)
+    words = BASE_TEXT.split(" ")
+    parts = [BASE_TEXT]
+    for _ in range(12):
+        sample = [rng.choice(words) for _ in range(len(words))]
+        parts.append(" ".join(sample))
+    return " ".join(parts)
+
+
+CORPUS = make_corpus()
+
+
+def build_corpus(target_mb: float, seed: int = 0) -> list[str]:
+    """The Zipf-like corpus: frequent base words mixed with rare forms."""
+    rng = random.Random(seed)
+    base_words = CORPUS.split()
+    forms = set(base_words)
+    for w in list(base_words):
+        for _ in range(30):
+            forms.add(w + rng.choice(string.ascii_lowercase))
+            forms.add(
+                w
+                + rng.choice(string.ascii_lowercase)
+                + rng.choice(string.ascii_lowercase)
+            )
+    forms = sorted(forms)  # set order varies per process (hash seed)
+    nrng = np.random.default_rng(seed)
+    base_arr = np.array(base_words)
+    forms_arr = np.array(forms)
+    docs: list[str] = []
+    total = 0
+    target = int(target_mb * 1e6)
+    est_doc = 256 * 7
+    while total < target:
+        n_docs = max((target - total) // est_doc, 1)
+        picks = nrng.random((n_docs, 256)) < 0.7
+        wb = base_arr[nrng.integers(0, len(base_arr), (n_docs, 256))]
+        wf = forms_arr[nrng.integers(0, len(forms_arr), (n_docs, 256))]
+        words = np.where(picks, wb, wf)
+        for row in words:
+            doc = " ".join(row.tolist())
+            docs.append(doc)
+            total += len(doc.encode())
+            if total >= target:
+                break
+    return docs
+
+
+def build_unique_corpus(target_mb: float, seed: int = 1) -> list[str]:
+    """The high-entropy corpus: random identifiers, numbers, URL-ish
+    fragments and long-tail inflections, nearly every word first-seen."""
+    nrng = np.random.default_rng(seed)
+    hu_suffix = (
+        "aink eink aitok eitek aik eik unk ünk tok tek nak nek ban ben "
+        "ból ből hoz hez val vel".split()
+    )
+    docs: list[str] = []
+    total = 0
+    target = int(target_mb * 1e6)
+    while total < target:
+        n_words = 256 * 64
+        kinds = nrng.integers(0, 4, n_words)
+        lens = nrng.integers(3, 13, n_words)
+        body_len = np.where(
+            kinds == 1, np.maximum(lens - 4, 2),
+            np.where(kinds == 2, np.maximum(lens - 4, 3),
+                     np.where(kinds == 3, np.maximum(lens - 3, 2), lens)),
+        )
+        maxl = int(body_len.max())
+        chars = np.where(
+            (kinds == 1)[:, None],
+            nrng.integers(ord("0"), ord("9") + 1, (n_words, maxl)),
+            nrng.integers(ord("a"), ord("z") + 1, (n_words, maxl)),
+        ).astype(np.uint8)
+        bodies = [
+            row[:bl].tobytes().decode()
+            for row, bl in zip(chars, body_len)
+        ]
+        sfx = nrng.integers(0, len(hu_suffix), n_words)
+        words = [
+            b if k == 0 or k == 1 else (b + ".io/" if k == 2 else b + hu_suffix[s])
+            for b, k, s in zip(bodies, kinds, sfx)
+        ]
+        for lo in range(0, n_words, 256):
+            doc = " ".join(words[lo : lo + 256])
+            docs.append(doc)
+            total += len(doc.encode())
+            if total >= target:
+                break
+    return docs
+
+
+def _wide_tokens() -> dict[bytes, int]:
+    """Raw token bytes -> id: the 256 byte seeds, then breadth-first
+    prefix chains (with and without the leading space) over about 60,000
+    word forms, the base words plus 2-4 random lowercase letters.  Every
+    multi-byte token splits into in-vocab halves, as in a trained BPE
+    vocabulary; ids follow creation order."""
+    rng = random.Random(11)
+    base_words = sorted(set(BASE_TEXT.split()))
+    forms = list(base_words)
+    while len(forms) < 60000:
+        tail = "".join(rng.choice(string.ascii_lowercase) for _ in range(rng.randint(2, 4)))
+        forms.append(rng.choice(base_words) + tail)
+    tokens = {bytes([i]): i for i in range(256)}
+    for ln in range(2, 32):
+        for w in forms:
+            wb = (" " + w).encode("utf-8")
+            for cand in (wb[:ln], wb[1 : 1 + ln]):
+                if len(cand) == ln and cand not in tokens:
+                    tokens[cand] = len(tokens)
+                    if len(tokens) == WIDE_VOCAB_SIZE:
+                        return tokens
+    raise ValueError(f"the word forms give only {len(tokens)} tokens")
+
+
+def write_wide_fixture(directory: str) -> tuple[str, str, str]:
+    """Write a byte-level vocabulary of ``WIDE_VOCAB_SIZE`` ids (token
+    ids and pair ranks past 16 bits), spelled as GPT-2 spells it, its
+    special-chars file and a merges.txt (rule ``(t[:-1], t[-1])`` for
+    every token whose parent is in the vocab, in id order) into
+    ``directory``; returns the three paths.  Deterministic."""
+    from hutoken_tpu_torch.bytemaps import gpt2_bytes_to_unicode, gpt2_special_chars_table
+    from hutoken_tpu_torch.formats import write_special_chars_file
+
+    os.makedirs(directory, exist_ok=True)
+    vocab_path = os.path.join(directory, "wide-vocab.txt")
+    special_path = os.path.join(directory, "wide-vocab_special_chars.txt")
+    merges_path = os.path.join(directory, "wide-merges.txt")
+    b2u = gpt2_bytes_to_unicode()
+    spelled = [
+        "".join(b2u[b] for b in tok)
+        for tok, _idx in sorted(_wide_tokens().items(), key=lambda kv: kv[1])
+    ]
+    with open(vocab_path, "w", encoding="utf-8") as f:
+        for idx, sp in enumerate(spelled):
+            hex_token = "".join(f"0x{b:02X}" for b in sp.encode("utf-8"))
+            f.write(f"{hex_token} == {idx}\n")
+    write_special_chars_file(special_path, gpt2_special_chars_table())
+    known = set(spelled)
+    with open(merges_path, "w", encoding="utf-8") as f:
+        f.write("#version: fixture-wide\n")
+        for idx, sp in enumerate(spelled):
+            if idx >= 256 and len(sp) >= 2 and sp[:-1] in known:
+                f.write(f"{sp[:-1]} {sp[-1]}\n")
+    return vocab_path, special_path, merges_path
 
 
 def check(cond: bool, what: str) -> None:
@@ -87,27 +272,26 @@ def check(cond: bool, what: str) -> None:
 
 def fixture_paths(name: str):
     """(vocab, special chars, merges or None) of a committed fixture."""
-    import fixture_tools as ft
-
-    if name == "small":
-        return (*ft.write_byte_level_fixture(), None)
-    merges = ft.write_big_merges_fixture() if name == "big-merges" else None
-    return (*ft.write_big_vocab_fixture(), merges)
+    stem = "bytelevel" if name == "small" else "bigvocab"
+    vocab = os.path.join(FIXTURES, f"{stem}-vocab.txt")
+    special = os.path.join(FIXTURES, f"{stem}-vocab_special_chars.txt")
+    merges = os.path.join(FIXTURES, "bigvocab-merges.txt") if name == "big-merges" else None
+    for p in (vocab, special, merges):
+        check(p is None or os.path.isfile(p), f"fixture file {p} is committed")
+    return vocab, special, merges
 
 
 def wide_paths(directory: str) -> dict:
     """Write the generated 100,256-id vocabulary into ``directory``;
     returns config name -> (vocab, special chars, merges or None)."""
-    import torch_parity as tp
-
-    vocab, special, merges = tp.write_wide_fixture(directory)
+    vocab, special, merges = write_wide_fixture(directory)
     return {"wide-string": (vocab, special, None), "wide-merges": (vocab, special, merges)}
 
 
 def load_config(paths):
     """(TokenizerContext, EncoderTables) of (vocab, special, merges)."""
-    from hutoken_tpu.context import TokenizerContext
-    from hutoken_tpu.tables import build_encoder_tables
+    from hutoken_tpu_torch.context import TokenizerContext
+    from hutoken_tpu_torch.tables import build_encoder_tables
 
     vocab, special, merges = paths
     ctx = TokenizerContext.load(vocab, special, is_byte_encoder=True, merges_file_path=merges)
@@ -115,9 +299,12 @@ def load_config(paths):
 
 
 def random_block(rng, n: int, width: int):
-    """ASCII and high bytes, lengths 0..width."""
+    """ASCII and high bytes, lengths 0..width, a fifth of the rows of
+    length 0 and a fifth of length 1."""
     alphabet = np.frombuffer(HIGH_BYTES, dtype=np.uint8)
     lens = rng.integers(0, width + 1, n).astype(np.int32)
+    lens[rng.random(n) < 0.2] = 0
+    lens[rng.random(n) < 0.2] = 1
     raw = alphabet[rng.integers(0, len(alphabet), (n, width))]
     ascii_rows = rng.random(n) < 0.5
     raw[ascii_rows] = rng.integers(ord("a"), ord("z") + 1, (int(ascii_rows.sum()), width))
@@ -125,16 +312,22 @@ def random_block(rng, n: int, width: int):
     return raw, lens
 
 
-def corpus_block(docs: list[str], rng, n: int, width: int):
-    """``n`` distinct corpus words of 2..width bytes, length-sorted as the
-    engine packs them."""
+def corpus_words(docs: list[str], lo: int, hi: int) -> list[bytes]:
+    """Distinct words of lo..hi bytes of the first documents, with the
+    leading space the split keeps."""
     seen = set()
     for d in docs[:4000]:
         for w in d.split(" "):
             b = (" " + w).encode()
-            if 2 <= len(b) <= width:
+            if lo <= len(b) <= hi:
                 seen.add(b)
-    words = sorted(seen)
+    return sorted(seen)
+
+
+def corpus_block(docs: list[str], rng, n: int, width: int):
+    """``n`` corpus words of 2..width bytes, length-sorted as the engine
+    packs them."""
+    words = corpus_words(docs, 2, width)
     pick = sorted((words[i] for i in rng.choice(len(words), n, replace=len(words) < n)), key=len)
     raw = np.zeros((n, width), dtype=np.uint8)
     lens = np.array([len(w) for w in pick], dtype=np.int32)
@@ -143,7 +336,12 @@ def corpus_block(docs: list[str], rng, n: int, width: int):
     return raw, lens
 
 
+# ------------------------------------------------------------- timing
+
+
 def time_ms(fn, reps: int) -> float:
+    """Ms per call by events around a loop: for calls that wait on the
+    host anyway (the plain twins sync every round)."""
     import torch
 
     fn()
@@ -157,55 +355,131 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_vs_plain(device: str, docs: list[str], label: str, configs: dict) -> dict:
-    """Phase 3: kernel == twin on the card for each of ``configs`` (name
-    -> paths; all narrow or all wide, the variant each launches); times
-    at the block shape.  A wide table's corpus words must give ids of
-    0x10000 or more."""
+def kernel_ms(fn) -> float:
+    """Device ms per call, with a sleep queued ahead so that the host's
+    enqueue never paces the loop (``profile_gather.cuda_time``)."""
+    from hutoken_tpu_torch import profile_gather as PG
+
+    return PG.cuda_time(fn)
+
+
+@contextlib.contextmanager
+def probe_log():
+    """Record every (left, right) pair the plain twins probe."""
+    from hutoken_tpu_torch.ops import fused_merge as FM
+
+    pairs = []
+    real = FM.probe_pairs
+
+    def logged(tab, a, b):
+        pairs.append((a.reshape(-1), b.reshape(-1)))
+        return real(tab, a, b)
+
+    FM.probe_pairs = logged
+    try:
+        yield pairs
+    finally:
+        FM.probe_pairs = real
+
+
+def probed_slot_bytes(tab, pairs) -> int:
+    """Bytes of the distinct pair-table slots that the kernel's probe
+    loop reads for these pairs: from the hash slot up to the hit or the
+    first empty slot, 16 bytes each."""
+    import torch
+
+    from hutoken_tpu_torch.ops.merge import hash_slots, pack_key
+
+    touched = torch.zeros(tab.cap_mask + 1, dtype=torch.bool, device=tab.device)
+    for a, b in pairs:
+        real = (a >= 0) & (b >= 0)
+        a, b = a[real], b[real]
+        h = hash_slots(a, b, tab.cap_mask)
+        alive = torch.ones_like(a, dtype=torch.bool)
+        key = None if tab.wide else pack_key(a, b)
+        for i in range(tab.probe_len):
+            slot = (h + i) & tab.cap_mask
+            touched[slot[alive]] = True
+            if tab.wide:
+                s = tab.slots[slot]
+                hit, empty = (s[:, 0] == a) & (s[:, 1] == b), s[:, 0] == -1
+            else:
+                k = tab.pkey[slot]
+                hit, empty = k == key, k == -1
+            alive &= ~(hit | empty)
+    return 16 * int(touched.sum())
+
+
+def bound_entry(nbytes: int) -> dict:
+    return {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+
+
+# ------------------------------------------------------------- phase 3
+
+
+def fused_vs_plain(device: str, docs: list[str], label: str, configs: dict) -> dict:
+    """Phase 3: the packed kernel == ``compact_output`` of the twin on
+    the card for each of ``configs`` (name -> paths; all narrow or all
+    wide, the variant each launches), on the prefix the host reads, at
+    widths 8, 16 and 32; then each width timed on corpus words, with
+    both compactions, the twin and ``compact_output`` alone beside it.
+    A wide table's corpus words must give ids of 0x10000 or more."""
     import torch
 
     from hutoken_tpu_torch.ops import fused_merge as FM
+    from hutoken_tpu_torch.ops.merge import compact_output
     from hutoken_tpu_torch.tables import device_tables
 
     rng = np.random.default_rng(0)
-    result = {"max_abs_err": 0, "ms": {}, "plain_ms": {}}
+    result = {"max_abs_err": 0, "by": {}}
     for name, paths in configs.items():
         ctx, enc = load_config(paths)
         tab = device_tables(enc, ctx, device)
+        u16 = enc.vocab_size < 0xFFFF
         check(tab.wide == name.startswith("wide-"), f"{name}: the table's layout")
         for width in (8, 16, 32):
             raw, lens = random_block(rng, CHECK_WORDS, width)
             r, n = torch.from_numpy(raw).to(device), torch.from_numpy(lens).to(device)
-            ids, counts = FM.fused_merge(tab, r, n)
-            pids, pcounts = FM.fused_merge_plain(tab, r, n)
-            err = max(
-                int((ids - pids).abs().max()), int((counts - pcounts).abs().max())
-            )
-            result["max_abs_err"] = max(result["max_abs_err"], err)
-            merged = int((counts < n).sum())
-            print(f"kernel vs plain  {name:11s} W={CHECK_WORDS} L={width}: "
-                  f"max_abs_err={err} (tolerance 0), words merged={merged}, "
-                  f"max id {int(ids.max())}")
-            check(err == 0, f"kernel == plain twin ({name}, L={width})")
-        raw, lens = corpus_block(docs, rng, BLOCK_WORDS, 32)
-        r, n = torch.from_numpy(raw).to(device), torch.from_numpy(lens).to(device)
-        ids, counts = FM.fused_merge(tab, r, n)
-        check(
-            all(torch.equal(a, b) for a, b in zip((ids, counts), FM.fused_merge_plain(tab, r, n))),
-            f"kernel == plain twin on corpus words ({name})",
-        )
-        if tab.wide:
-            check(int(ids.max()) >= 0x10000, f"{name}: corpus words give ids of 0x10000 or more")
-        # plain, kernel, kernel, plain; the pair table is meant to stay in
-        # L2, so launches are not separated by a cache flush
-        p1 = time_ms(lambda: FM.fused_merge_plain(tab, r, n), 3)
-        k1 = time_ms(lambda: FM.fused_merge(tab, r, n), 50)
-        k2 = time_ms(lambda: FM.fused_merge(tab, r, n), 50)
-        p2 = time_ms(lambda: FM.fused_merge_plain(tab, r, n), 3)
-        result["ms"][name] = (k1 + k2) / 2
-        result["plain_ms"][name] = (p1 + p2) / 2
-        print(f"[{label}] fused merge {name:11s} {BLOCK_WORDS}x32 corpus words: "
-              f"kernel {k1:.4f} / {k2:.4f} ms, plain twin {p1:.3f} / {p2:.3f} ms")
+            want = compact_output(FM.fused_merge_plain(tab, r, n)[0], u16)
+            read = CHECK_WORDS + int(want[:CHECK_WORDS].to(torch.int64).sum())
+            for staged in (False, True):
+                got = FM.merge_words_from_bytes_fused(tab, r, n, u16, staged=staged)
+                err = int((got[:read].to(torch.int64) - want[:read].to(torch.int64)).abs().max())
+                result["max_abs_err"] = max(result["max_abs_err"], err)
+                check(err == 0, f"packed kernel == packed twin ({name}, L={width}, staged={staged})")
+            print(f"kernel vs plain  {name:11s} W={CHECK_WORDS} L={width}: packed prefix of "
+                  f"{read} entries equal, both compactions (max_abs_err 0, tolerance 0); "
+                  f"words merged {int((want[:CHECK_WORDS].to(torch.int32) < n).sum())}")
+        for width in (8, 16, 32):
+            raw, lens = corpus_block(docs, rng, BLOCK_WORDS, width)
+            r, n = torch.from_numpy(raw).to(device), torch.from_numpy(lens).to(device)
+            with probe_log() as pairs:
+                ids, counts = FM.fused_merge_plain(tab, r, n)
+            want = compact_output(ids, u16)
+            read = BLOCK_WORDS + int(counts.sum())
+            got = FM.merge_words_from_bytes_fused(tab, r, n, u16)
+            check(torch.equal(got[:read], want[:read]), f"kernel == twin on corpus words ({name}, L={width})")
+            if tab.wide and width == 32:
+                check(int(ids.max()) >= 0x10000, f"{name}: corpus words give ids of 0x10000 or more")
+            scan_bytes = 8 * (1 + -(-BLOCK_WORDS // (FM.WARPS_PER_BLOCK * 32 // FM.tile_width(width))))
+            nbytes = (raw.nbytes + lens.nbytes + 1024 + probed_slot_bytes(tab, pairs)
+                      + read * want.element_size() + scan_bytes)
+            # in turns, inside this call; the pair table is meant to stay
+            # in L2, so launches are not separated by a cache flush
+            k1 = kernel_ms(lambda: FM.merge_words_from_bytes_fused(tab, r, n, u16))
+            s1 = kernel_ms(lambda: FM.merge_words_from_bytes_fused(tab, r, n, u16, staged=True))
+            s2 = kernel_ms(lambda: FM.merge_words_from_bytes_fused(tab, r, n, u16, staged=True))
+            k2 = kernel_ms(lambda: FM.merge_words_from_bytes_fused(tab, r, n, u16))
+            c1 = time_ms(lambda: compact_output(ids, u16), 10)
+            p1 = time_ms(lambda: compact_output(FM.fused_merge_plain(tab, r, n)[0], u16), 2)
+            row = {"ms": (k1 + k2) / 2, "staged_ms": (s1 + s2) / 2, "plain_ms": p1,
+                   "compact_output_ms": c1, **bound_entry(nbytes)}
+            result["by"][f"{name} L={width}"] = row
+            print(f"[{label}] fused merge {name:11s} {BLOCK_WORDS}x{width} corpus words: "
+                  f"kernel {k1:.4f} / {k2:.4f} ms (registers), {s1:.4f} / {s2:.4f} ms "
+                  f"(shared memory); twin + compact_output {p1:.3f} ms; compact_output "
+                  f"alone {c1:.4f} ms; bound {row['bound_ms']:.5f} ms ({nbytes} B), "
+                  f"share {row['bound_ms'] / row['ms']:.3f}")
     return result
 
 
@@ -262,9 +536,57 @@ def seg_inputs(device: str, chunk: np.ndarray, ends: np.ndarray):
     return c, starts.to(torch.int32), lens.to(torch.int32)
 
 
-def seg_kernel_vs_plain(device: str, docs: list[str], label: str) -> dict:
-    """Phase 3, segmented merge: kernel == twin on the card; times on
-    one raw-path chunk of the unique corpus."""
+def rounds_of(tab, word: bytes) -> int:
+    """Merge rounds of one word in the plain twin (one probe a round,
+    and a last one that merges nothing)."""
+    import torch
+
+    from hutoken_tpu_torch.ops import fused_merge as FM
+
+    raw = torch.zeros((1, 32), dtype=torch.uint8, device=tab.device)
+    raw[0, : len(word)] = torch.tensor(list(word), dtype=torch.uint8)
+    with probe_log() as pairs:
+        FM.fused_merge_plain(tab, raw, torch.tensor([len(word)], dtype=torch.int32, device=tab.device))
+    return len(pairs) - 1
+
+
+def length_chunk(device: str, tab, docs: list[str], rng):
+    """A chunk of LENGTH_RUNS runs of 33 words listed in a random order
+    per run, one of every length 0-32, so that each 32-word run of the
+    list holds short words, long words and skips together.  Its 8-byte
+    word is the corpus word that merges for the most rounds, and every
+    shorter word one that merges for fewer: the 8-lane tiles of a run
+    leave the loop in different rounds.  Returns (chunk, starts, lens)
+    on the card and the rounds (8-byte word, most of the shorter)."""
+    import torch
+
+    pick = {}
+    for ln in range(1, 33):
+        words = corpus_words(docs, ln, ln) or [bytes(rng.integers(97, 123, ln).tolist())]
+        if ln <= 8:
+            sample = words[:: max(1, len(words) // 60)]
+            rounds = [rounds_of(tab, w) for w in sample]
+            best = int(np.argmax(rounds) if ln == 8 else np.argmin(rounds))
+            pick[ln] = (sample[best], rounds[best])
+        else:
+            pick[ln] = (words[int(rng.integers(0, len(words)))], None)
+    long_rounds = pick[8][1]
+    short_rounds = max(r for ln, (_w, r) in pick.items() if ln < 8)
+    blob, starts, lens = bytearray(), [], []
+    for _ in range(LENGTH_RUNS):
+        for ln in rng.permutation(33).tolist():
+            starts.append(len(blob))
+            lens.append(ln)
+            if ln:
+                blob += pick[ln][0]
+    c = torch.from_numpy(np.frombuffer(bytes(blob), dtype=np.uint8).copy()).to(device)
+    return (c, torch.tensor(starts, dtype=torch.int32, device=device),
+            torch.tensor(lens, dtype=torch.int32, device=device)), (long_rounds, short_rounds)
+
+
+def seg_vs_plain(device: str, docs: list[str], label: str) -> dict:
+    """Phase 3, segmented merge: kernel == twin on the card, both
+    compactions; times on one raw-path chunk of the unique corpus."""
     import torch
 
     from hutoken_tpu_torch.ops import seg_merge as SM
@@ -272,35 +594,48 @@ def seg_kernel_vs_plain(device: str, docs: list[str], label: str) -> dict:
     from hutoken_tpu_torch.tables import device_tables
 
     rng = np.random.default_rng(2)
-    result = {"max_abs_err": 0, "ms": {}, "plain_ms": {}}
+    result = {"max_abs_err": 0, "by": {}}
     big = raw_chunk(docs)
     for name in ("small", "big-vocab", "big-merges"):
         ctx, enc = load_config(fixture_paths(name))
         tab = device_tables(enc, ctx, device)
         chunk, ends = mixed_chunk(rng, MIXED_WORDS)
         check(S.supported_alphabet(chunk), "mixed chunk is in the device alphabet")
-        args = seg_inputs(device, chunk, ends)
-        ids, pids = SM.seg_merge(tab, *args), SM.seg_merge_plain(tab, *args)
-        err = int((ids - pids).abs().max())
-        result["max_abs_err"] = max(result["max_abs_err"], err)
-        print(f"seg kernel vs plain {name:10s} {chunk.shape[0]} B, {len(ends)} docs, "
-              f"{int((args[2] > 0).sum())} words <= 32 B of {args[1].shape[0]}: max_abs_err={err} (tolerance 0), "
-              f"tokens={int((ids >= 0).sum())}")
-        check(err == 0, f"seg kernel == plain twin ({name})")
+        lengths, (long_r, short_r) = length_chunk(device, tab, docs, rng)
+        check(long_r > short_r, f"{name}: the 8-byte word merges for more rounds ({long_r}) "
+              f"than the shorter ones ({short_r})")
+        for what, args in (("mixed", seg_inputs(device, chunk, ends)), ("every length", lengths)):
+            want = SM.seg_merge_plain(tab, *args)
+            for staged in (False, True):
+                err = int((SM.seg_merge(tab, *args, staged=staged) - want).abs().max())
+                result["max_abs_err"] = max(result["max_abs_err"], err)
+                check(err == 0, f"seg kernel == plain twin ({name}, {what}, staged={staged})")
+            print(f"seg kernel vs plain {name:10s} {what} chunk {args[0].shape[0]} B, "
+                  f"{args[1].shape[0]} words: max_abs_err 0 (tolerance 0), both compactions; "
+                  f"tokens {int((want >= 0).sum())}"
+                  + (f"; 8-byte word {long_r} rounds, shorter ones at most {short_r}"
+                     if what == "every length" else ""))
         args = seg_inputs(device, *big)
-        check(torch.equal(SM.seg_merge(tab, *args), SM.seg_merge_plain(tab, *args)),
-              f"seg kernel == plain twin on a raw chunk ({name})")
-        # plain, kernel, kernel, plain; the table stays in L2 as in a run
+        with probe_log() as pairs:
+            want = SM.seg_merge_plain(tab, *args)
+        check(torch.equal(SM.seg_merge(tab, *args), want), f"seg kernel == plain twin on a raw chunk ({name})")
+        n = args[0].shape[0]
+        nbytes = n + 8 * args[1].shape[0] + 1024 + probed_slot_bytes(tab, pairs) + 4 * n
+        k1 = kernel_ms(lambda: SM.seg_merge(tab, *args))
+        s1 = kernel_ms(lambda: SM.seg_merge(tab, *args, staged=True))
+        s2 = kernel_ms(lambda: SM.seg_merge(tab, *args, staged=True))
+        k2 = kernel_ms(lambda: SM.seg_merge(tab, *args))
         p1 = time_ms(lambda: SM.seg_merge_plain(tab, *args), 2)
-        k1 = time_ms(lambda: SM.seg_merge(tab, *args), 20)
-        k2 = time_ms(lambda: SM.seg_merge(tab, *args), 20)
-        p2 = time_ms(lambda: SM.seg_merge_plain(tab, *args), 2)
-        result["ms"][name] = (k1 + k2) / 2
-        result["plain_ms"][name] = (p1 + p2) / 2
-        print(f"[{label}] seg merge {name:10s} raw chunk {big[0].shape[0]} B, "
-              f"{args[1].shape[0]} words: kernel {k1:.4f} / {k2:.4f} ms, "
-              f"plain twin {p1:.3f} / {p2:.3f} ms")
+        row = {"ms": (k1 + k2) / 2, "staged_ms": (s1 + s2) / 2, "plain_ms": p1, **bound_entry(nbytes)}
+        result["by"][name] = row
+        print(f"[{label}] seg merge {name:10s} raw chunk {n} B, {args[1].shape[0]} words: "
+              f"kernel {k1:.4f} / {k2:.4f} ms (registers), {s1:.4f} / {s2:.4f} ms (shared "
+              f"memory); twin {p1:.3f} ms; bound {row['bound_ms']:.5f} ms ({nbytes} B), "
+              f"share {row['bound_ms'] / row['ms']:.3f}")
     return result
+
+
+# ------------------------------------------------------- phases 4 to 7
 
 
 def launch_counts() -> dict:
@@ -308,8 +643,8 @@ def launch_counts() -> dict:
     from hutoken_tpu_torch.ops import fused_merge as FM
     from hutoken_tpu_torch.ops import seg_merge as SM
 
-    return {"fused_merge": FM.fused_merge.launches,
-            "fused_merge_wide": FM.fused_merge.wide_launches,
+    f = FM.merge_words_from_bytes_fused
+    return {"fused_merge": f.launches, "fused_merge_wide": f.wide_launches,
             "seg_merge": SM.seg_merge.launches}
 
 
@@ -317,7 +652,8 @@ def zero_launch_counts() -> None:
     from hutoken_tpu_torch.ops import fused_merge as FM
     from hutoken_tpu_torch.ops import seg_merge as SM
 
-    FM.fused_merge.launches = FM.fused_merge.wide_launches = SM.seg_merge.launches = 0
+    f = FM.merge_words_from_bytes_fused
+    f.launches = f.wide_launches = SM.seg_merge.launches = 0
 
 
 def encode_run(native, docs: list[str], what: str, want_path: str, label: str):
@@ -326,18 +662,18 @@ def encode_run(native, docs: list[str], what: str, want_path: str, label: str):
     right after.  ``want_path`` is the path it must take: "raw" (the
     segmented kernel), "pipeline" (the fused kernel) or "wide" (the wide
     fused kernel).  ``native`` is the native engine of the same
-    configuration.  Returns (ids per document, summed launch counts, the
-    largest id)."""
+    configuration.  Returns (ids per document, the cold run's launch
+    counts, the largest id)."""
     import torch
 
     import hutoken_tpu_torch as hutoken
-    from hutoken_tpu import oracle
+    from hutoken_tpu_torch import oracle
 
     engine = hutoken._get_engine()
     nbytes = sum(len(d.encode()) for d in docs)
     zero_launch_counts()
     got = hutoken.batch_encode(docs)
-    counts = launch_counts()
+    first = launch_counts()
     want = native.encode_batch(docs, 8)
     bad = sum(g != w for g, w in zip(got, want))
     check(len(got) == len(docs) and bad == 0, f"{what}: {bad} documents differ from native")
@@ -355,7 +691,8 @@ def encode_run(native, docs: list[str], what: str, want_path: str, label: str):
     hutoken.batch_encode(docs)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = {k: v + launch_counts()[k] for k, v in counts.items()}
+    counts = launch_counts()
+    check(counts == first, f"{what}: a cold run launches as the first run did ({counts} vs {first})")
     share = (engine.stat_device_bytes - dev0) / nbytes
     fused, wide, seg = counts["fused_merge"], counts["fused_merge_wide"], counts["seg_merge"]
     if want_path == "raw":
@@ -370,15 +707,16 @@ def encode_run(native, docs: list[str], what: str, want_path: str, label: str):
     print(f"[{label}] main path {what}: {nbytes / 1e6:.1f} MB, "
           f"{len(docs)} docs: equal to native (all docs) and oracle ({ORACLE_SAMPLE}); "
           f"{core} core; cold run {nbytes / 1e6 / dt:.2f} MB/s ({dt:.3f} s); "
-          f"device byte share {share:.4f}; launches fused {fused}, wide {wide}, seg {seg}; "
+          f"device byte share {share:.4f}; launches per run fused {fused}, wide {wide}, seg {seg}; "
           f"max id {max_id}; host bytes by cause {engine.stat_host_cause}")
     return got, counts, max_id
 
 
-def main_path(device: str, zipf: list[str], unique: list[str], label: str) -> dict:
-    """Phase 5 through the facade; returns each kernel's launches."""
+def main_path(device: str, zipf: list[str], unique: list[str], label: str):
+    """Phase 5 through the facade; returns each kernel's launches over
+    all runs, and per run."""
     import hutoken_tpu_torch as hutoken
-    from hutoken_tpu.native import NativeEngine
+    from hutoken_tpu_torch.native import NativeEngine
 
     # (config, corpus name, docs, HUTOKEN_TPU_RAW, path it must take)
     runs = [
@@ -389,29 +727,33 @@ def main_path(device: str, zipf: list[str], unique: list[str], label: str) -> di
         ("big-vocab", "unique", unique, "auto", "raw"),
     ]
     launches = {"fused_merge": 0, "fused_merge_wide": 0, "seg_merge": 0}
+    per_run = {k: {} for k in launches}
     for config, cname, docs, raw_env, want_path in runs:
         os.environ["HUTOKEN_TPU_RAW"] = raw_env
         vocab, special, merges = fixture_paths(config)
         kw = {"merges_file_path": merges} if merges else {}
         hutoken.initialize(vocab, special, is_byte_encoder=True, device=device, **kw)
+        run = f"{config} {cname} RAW={raw_env}"
         _got, counts, _max_id = encode_run(NativeEngine(hutoken._ctx), docs,
-                                  f"{config:10s} {cname:6s} RAW={raw_env:4s}", want_path, label)
+                                           f"{config:10s} {cname:6s} RAW={raw_env:4s}", want_path, label)
         for k, v in counts.items():
             launches[k] += v
+            if v:
+                per_run[k][run] = v
     os.environ.pop("HUTOKEN_TPU_RAW", None)
-    return launches
+    return launches, per_run
 
 
 def wide_main_path(device: str, zipf: list[str], unique: list[str], label: str,
-                   configs: dict) -> int:
+                   configs: dict):
     """Phase 6w: one facade per wide configuration, both corpora encoded
     under ``HUTOKEN_TPU_RAW=auto`` (the word pipeline with the wide
     kernel), then their ids decoded on the device; returns the wide
-    kernel's launches."""
+    kernel's launches, in all and per run."""
     import hutoken_tpu_torch as hutoken
-    from hutoken_tpu.native import NativeEngine
+    from hutoken_tpu_torch.native import NativeEngine
 
-    launches = 0
+    launches, per_run = 0, {}
     os.environ["HUTOKEN_TPU_RAW"] = "auto"
     for config, (vocab, special, merges) in configs.items():
         t0 = time.perf_counter()
@@ -426,12 +768,13 @@ def wide_main_path(device: str, zipf: list[str], unique: list[str], label: str,
         for cname, docs in (("zipf", zipf), ("unique", unique)):
             ids, counts, max_id = encode_run(native, docs, f"{config:11s} {cname:6s} RAW=auto", "wide", label)
             launches += counts["fused_merge_wide"]
+            per_run[f"{config} {cname} RAW=auto"] = counts["fused_merge_wide"]
             max_ids.append(max_id)
             decode_run(native, docs, ids, f"{config:11s} {cname:6s}", label)
         # the unique corpus's random identifiers stay below 0x10000 here
         check(max(max_ids) >= 0x10000, f"{config}: no id of 0x10000 or more")
     os.environ.pop("HUTOKEN_TPU_RAW", None)
-    return launches
+    return launches, per_run
 
 
 def gather_probe(device: str, label: str) -> list[dict]:
@@ -457,12 +800,19 @@ def gather_probe(device: str, label: str) -> list[dict]:
             "source": "hutoken_tpu_torch/csrc/gather.cu",
             "replaces": replaces,
             "launches": launches,
+            "launches_per_run": 0,  # the probe is no part of the main path
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main["ms"],
             "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": main["library_ms"],
+            "share": main["bound_ms"] / main["ms"],
             "shape": main["case"],
             "ms_by_shape": {r["case"]: r["ms"] for r in mine},
             "plain_ms_by_shape": {r["case"]: r["plain_ms"] for r in mine},
+            "library_ms_by_shape": {r["case"]: r["library_ms"] for r in mine},
+            "bound_ms_by_shape": {r["case"]: r["bound_ms"] for r in mine},
         }
         if mode:
             entry["variant"] = mode
@@ -474,7 +824,7 @@ def device_decode(device: str, zipf: list[str], unique: list[str], label: str) -
     """Phase 6: device decode through the facade (``backend="device"``)
     of both corpora's native ids under both committed configurations."""
     import hutoken_tpu_torch as hutoken
-    from hutoken_tpu.native import NativeEngine
+    from hutoken_tpu_torch.native import NativeEngine
 
     for config in ("big-merges", "big-vocab"):
         vocab, special, merges = fixture_paths(config)
@@ -547,7 +897,9 @@ def decode_run(native, docs: list[str], ids: list[list[int]], what: str, label: 
 def profile_runs(device: str, unique: list[str], label: str) -> None:
     """Phase 7: device busy share (device self time / wall) of one
     cold run of big-merges / unique on each path, with the top kernels,
-    and the same run's wall through ``encode_batch_arrays``."""
+    and the same run's wall through ``encode_batch_arrays``.  The word
+    pipeline's run must show the fused kernel and no ``compact_output``
+    span."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -566,11 +918,17 @@ def profile_runs(device: str, unique: list[str], label: str) -> None:
             hutoken.batch_encode(unique)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        events = prof.key_averages()
         # device-side events only: an operator's row repeats its kernels' time
-        rows = [(e.self_device_time_total, e.key) for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
+        rows = [(e.self_device_time_total, e.key) for e in events if e.device_type == DeviceType.CUDA]
         busy = sum(t for t, _k in rows) / 1e6
-        top = ", ".join(f"{k[:40]} {t / 1e3:.2f} ms" for t, k in sorted(rows, reverse=True)[:6] if t > 0)
+        top = ", ".join(f"{k[:40]} {t / 1e3:.3f} ms" for t, k in sorted(rows, reverse=True)[:6] if t > 0)
+        spans = sum(e.count for e in events if e.key == "compact_output")
+        kernel = "fused_merge_kernel" if raw_env == "0" else "seg_merge_kernel"
+        kernel_ms_total = sum(t for t, k in rows if kernel in k) / 1e3
+        check(kernel_ms_total > 0, f"profile RAW={raw_env}: {kernel} ran on the card")
+        if raw_env == "0":
+            check(spans == 0, f"profile RAW=0: {spans} compact_output spans on the word pipeline")
         # the same cold run through the arrays API: no per-document lists
         hutoken._get_engine().reset_cache()
         torch.cuda.synchronize()
@@ -579,9 +937,39 @@ def profile_runs(device: str, unique: list[str], label: str) -> None:
         torch.cuda.synchronize()
         arrays = time.perf_counter() - t0
         print(f"[{label}] profile big-merges unique RAW={raw_env}: wall {wall:.3f} s, "
-              f"device self time {busy:.4f} s, busy share {busy / wall:.4f}; "
+              f"device self time {busy * 1e3:.3f} ms, busy share {busy / wall:.4f}; "
+              f"{kernel} {kernel_ms_total:.3f} ms; compact_output spans {spans}; "
               f"arrays API cold {arrays:.3f} s; top: {top}")
     os.environ.pop("HUTOKEN_TPU_RAW", None)
+
+
+def merge_entry(name, source, replaces, launches, per_run, res, key, by) -> dict:
+    """A kernels-line entry of a merge kernel: ``res["by"][key]`` is the
+    row its ms, plain_ms and bound come from; ``by`` names the other
+    rows' keys."""
+    row = res["by"][key]
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": launches,
+        "launches_per_run": per_run,
+        "max_abs_err": res["max_abs_err"],
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes a BPE merge
+        "share": row["bound_ms"] / row["ms"],
+        "shape": key,
+        f"ms_by_{by}": {k: r["ms"] for k, r in res["by"].items()},
+        f"staged_ms_by_{by}": {k: r["staged_ms"] for k, r in res["by"].items()},
+        f"plain_ms_by_{by}": {k: r["plain_ms"] for k, r in res["by"].items()},
+        f"bound_ms_by_{by}": {k: r["bound_ms"] for k, r in res["by"].items()},
+        **({"compact_output_ms_by_block": {k: r["compact_output_ms"] for k, r in res["by"].items()}}
+           if "compact_output_ms" in row else {}),
+    }
 
 
 def main() -> int:
@@ -597,7 +985,7 @@ def main() -> int:
 
     label = card_label()
     print(label)
-    from hutoken_tpu.native import load_native
+    from hutoken_tpu_torch.native import load_native
 
     native = load_native() is not None
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -616,17 +1004,15 @@ def main() -> int:
         print(f"built {os.path.relpath(so, HERE)}")
     print(f"all three kernel sources built in {time.perf_counter() - t0:.1f} s")
 
-    import bench
-
     t0 = time.perf_counter()
-    zipf = bench.build_corpus(ZIPF_MB)
-    unique = bench.build_unique_corpus(UNIQUE_MB)
+    zipf = build_corpus(ZIPF_MB)
+    unique = build_unique_corpus(UNIQUE_MB)
     print(f"corpora built in {time.perf_counter() - t0:.1f} s")
 
     # 3. kernel vs plain
-    kv = kernel_vs_plain(device, unique, label,
-                         {n: fixture_paths(n) for n in ("small", "big-vocab", "big-merges")})
-    sv = seg_kernel_vs_plain(device, unique, label)
+    kv = fused_vs_plain(device, unique, label,
+                        {n: fixture_paths(n) for n in ("small", "big-vocab", "big-merges")})
+    sv = seg_vs_plain(device, unique, label)
 
     # 4. gather probe; counts are zeroed inside, right before the run
     t0 = time.perf_counter()
@@ -634,7 +1020,7 @@ def main() -> int:
     print(f"gather probe took {time.perf_counter() - t0:.1f} s")
 
     # 5. main path; counts are zeroed inside, right before each run
-    launches = main_path(device, zipf, unique, label)
+    launches, per_run = main_path(device, zipf, unique, label)
     check(launches["fused_merge"] > 0 and launches["seg_merge"] > 0 and not launches["fused_merge_wide"],
           f"the main path launched both narrow kernels and not the wide one: {launches}")
 
@@ -647,54 +1033,28 @@ def main() -> int:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="hutoken-wide-") as wide_dir:
         wide = wide_paths(wide_dir)
-        kvw = kernel_vs_plain(device, zipf, label, wide)
-        wide_launches = wide_main_path(device, zipf, unique, label, wide)
+        kvw = fused_vs_plain(device, zipf, label, wide)
+        wide_launches, wide_per_run = wide_main_path(device, zipf, unique, label, wide)
     check(wide_launches > 0, "the wide main path launched the wide kernel")
     print(f"wide vocabulary phases took {time.perf_counter() - t0:.1f} s")
 
     # 7. profile
     profile_runs(device, unique, label)
-    check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules), "jax stayed unloaded")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "hutoken_tpu"))
+    check(not loaded, f"neither jax nor the JAX package was loaded: {loaded[:5]}")
+    print("neither jax nor hutoken_tpu is in sys.modules")
 
+    fused_src = "hutoken_tpu_torch/csrc/fused_merge.cu"
     print(json.dumps({"kernels": [
-        {
-            "name": "fused_merge",
-            "route": "cuda",
-            "source": "hutoken_tpu_torch/csrc/fused_merge.cu",
-            "replaces": "hutoken_tpu/ops/pallas_merge.py:252",
-            "launches": launches["fused_merge"],
-            "max_abs_err": kv["max_abs_err"],
-            "ms": kv["ms"]["big-merges"],
-            "plain_ms": kv["plain_ms"]["big-merges"],
-            "ms_by_table": kv["ms"],
-            "plain_ms_by_table": kv["plain_ms"],
-        },
-        {
-            "name": "fused_merge",
-            "variant": "wide",
-            "route": "cuda",
-            "source": "hutoken_tpu_torch/csrc/fused_merge.cu",
-            "replaces": "hutoken_tpu/ops/rmatrix.py:231",
-            "launches": wide_launches,
-            "max_abs_err": kvw["max_abs_err"],
-            "ms": kvw["ms"]["wide-merges"],
-            "plain_ms": kvw["plain_ms"]["wide-merges"],
-            "ms_by_table": kvw["ms"],
-            "plain_ms_by_table": kvw["plain_ms"],
-        },
-        {
-            "name": "seg_merge",
-            "route": "cuda",
-            "source": "hutoken_tpu_torch/csrc/seg_merge.cu",
-            "replaces": "hutoken_tpu/ops/pallas_merge.py:445",
-            "launches": launches["seg_merge"],
-            "max_abs_err": sv["max_abs_err"],
-            "ms": sv["ms"]["big-merges"],
-            "plain_ms": sv["plain_ms"]["big-merges"],
-            "ms_by_table": sv["ms"],
-            "plain_ms_by_table": sv["plain_ms"],
-        },
+        merge_entry("fused_merge", fused_src, "hutoken_tpu/ops/pallas_merge.py:252",
+                    launches["fused_merge"], per_run["fused_merge"], kv, "big-merges L=32", "block"),
+        {"variant": "wide", **merge_entry(
+            "fused_merge", fused_src, "hutoken_tpu/ops/rmatrix.py:231",
+            wide_launches, wide_per_run, kvw, "wide-merges L=32", "block")},
+        merge_entry("seg_merge", "hutoken_tpu_torch/csrc/seg_merge.cu",
+                    "hutoken_tpu/ops/pallas_merge.py:445", launches["seg_merge"],
+                    per_run["seg_merge"], sv, "big-merges", "table"),
         *gathers,
     ]}))
     print(json.dumps({"ok": True, "device": {

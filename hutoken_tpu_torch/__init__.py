@@ -23,8 +23,9 @@ device (``HUTOKEN_TPU_DECODE`` may still send it to its host path);
 under ``auto`` ``batch_decode`` goes there only with
 ``HUTOKEN_TPU_DECODE=device``, since the engine's default decode is the
 native host decode that ``auto`` runs anyway and building the engine
-needs the device.  Everything else decodes on the host.  This module
-never imports JAX.
+needs the device.  Everything else decodes on the host.  The package
+imports nothing of JAX and nothing of the JAX package ``hutoken_tpu``:
+it keeps its own copies of the host modules it needs.
 """
 
 from __future__ import annotations
@@ -34,9 +35,9 @@ import sys
 import traceback
 from typing import Any, Optional
 
-from hutoken_tpu import oracle
-from hutoken_tpu.context import TokenizerContext
-from hutoken_tpu.utils.logging import initialize_logging, log_debug
+from . import oracle
+from .context import TokenizerContext
+from .utils.logging import initialize_logging, log_debug
 
 __version__ = "0.1.0"
 
@@ -55,11 +56,6 @@ _DECODE_UNINIT_MSG = (
     "Vocabulary is not initialized for decoding. "
     "Call 'initialize_decode' function first."
 )
-_MESH_MSG = (
-    "mesh= (multi-device training) is not ported to PyTorch yet: "
-    "ROADMAP queue 1 item 8"
-)
-
 
 def _reset() -> None:
     global _ctx, _engine, _native, _native_failed
@@ -78,7 +74,7 @@ def initialize(model_or_path: str, *args: Any, **kwargs: Any):
     """
     global _ctx, _backend, _device
     initialize_logging()
-    from hutoken_tpu.utils.mem import tune_allocator
+    from .utils.mem import tune_allocator
 
     tune_allocator()
     _backend = kwargs.pop("backend", os.environ.get("HUTOKEN_TPU_BACKEND", "auto"))
@@ -117,7 +113,7 @@ def initialize(model_or_path: str, *args: Any, **kwargs: Any):
         )
         return None
 
-    from hutoken_tpu.hf_import import import_hf_tokenizer  # optional dependency
+    from .hf_import import import_hf_tokenizer  # optional dependency
 
     vocab_file, special_chars_file, prefix, is_byte_encoder, merges_file_path = (
         import_hf_tokenizer(model_or_path)
@@ -158,7 +154,7 @@ def _get_native():
     global _native, _native_failed
     if _native is None and not _native_failed:
         try:
-            from hutoken_tpu.native import NativeEngine
+            from .native import NativeEngine
 
             _native = NativeEngine(_ctx)
         except Exception as e:
@@ -263,22 +259,20 @@ def batch_decode(tokens: list[list[int]], num_threads: int = 1) -> list[str]:
 
 def bpe_train(data: str, vocab_size: int, vocab_file_name: str, **kwargs: Any):
     """Train a BPE vocab on the host (``strict=False`` disables the
-    reference-bug emulation, see ``hutoken_tpu.train.bpe``)."""
-    from hutoken_tpu.train.bpe import bpe_train as _bpe_train
+    reference-bug emulation, see ``train/bpe.py``; ``mesh=`` raises
+    ``NotImplementedError``)."""
+    from .train.bpe import bpe_train as _bpe_train
 
     _validate_train_args(vocab_size, vocab_file_name)
-    if kwargs.get("mesh") is not None:
-        raise NotImplementedError(_MESH_MSG)
     return _bpe_train(data, vocab_size, vocab_file_name, **kwargs)
 
 
 def bbpe_train(data: str, vocab_size: int, vocab_file_name: str, **kwargs: Any):
-    """Train a byte-level BPE vocab on the host."""
-    from hutoken_tpu.train.bbpe import bbpe_train as _bbpe_train
+    """Train a byte-level BPE vocab on the host (``mesh=`` raises
+    ``NotImplementedError``)."""
+    from .train.bbpe import bbpe_train as _bbpe_train
 
     _validate_train_args(vocab_size, vocab_file_name)
-    if kwargs.get("mesh") is not None:
-        raise NotImplementedError(_MESH_MSG)
     return _bbpe_train(data, vocab_size, vocab_file_name, **kwargs)
 
 
@@ -291,7 +285,7 @@ def _validate_train_args(vocab_size: int, vocab_file_name: str) -> None:
 
 def initialize_foma():
     """Load the foma/emMorph FST."""
-    from hutoken_tpu import morphology
+    from . import morphology
 
     if not morphology.available():
         raise RuntimeError(
@@ -303,7 +297,7 @@ def initialize_foma():
 
 def look_up_word(handle, word: str, only_longest: bool = False):
     """Morphological analysis of a word."""
-    from hutoken_tpu import morphology
+    from . import morphology
 
     if not morphology.available():
         raise RuntimeError(

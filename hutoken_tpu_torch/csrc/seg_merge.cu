@@ -7,26 +7,33 @@
 // surviving token's id is written at the byte of its first byte; all
 // other bytes (consumed bytes, bytes of unlisted words, padding) stay -1,
 // as the caller fills them.  A listed length of 0 skips the word: the raw
-// path lists words longer than 32 bytes that way.  That is _kernel_seg's "survivors stay at
-// their lanes, holes = -1" with the lane replaced by the byte position.
-// Its final nxt links are not produced: only the partial-table
-// divergence probe reads them, and the full-table probe never diverges.
+// path lists words longer than 32 bytes that way.  That is _kernel_seg's
+// "survivors stay at their lanes, holes = -1" with the lane replaced by
+// the byte position.  Its final nxt links are not produced: only the
+// partial-table divergence probe reads them, and the full-table probe
+// never diverges.
 //
 // Design.  The TPU kernel takes the chunk as 96-byte windows in 128-lane
 // rows with a per-lane aux word (position, word-end lane, dead bit) and
 // segment-relative prefix-min reductions; that layout exists to keep XLA
-// away from gathers.  Here one warp takes one word straight from the
-// word list: lane i loads byte word_start + i, maps it through the byte
-// LUT, and runs merge_warp.cuh's merge_word, carrying its byte offset
-// through every compaction so that each survivor is written in place.
-// The argmin key is rank * 32 + compacted position where _kernel_seg
-// keys on the original in-word position; both orders are leftmost at
-// equal rank, so both reach the same fixed point.
+// away from gathers.  Here the word list comes straight from the start
+// mask, and words of every length share it: a raw chunk averages under
+// 5 bytes a word.  Each warp takes a run of 32 consecutive words, one per
+// lane, and ballots which of them fit 8 lanes.  It merges those four at a
+// time, one per 8-lane tile, then the longer ones (9-32 bytes) one at a
+// time across the whole warp.  Lane i of a tile loads byte word_start +
+// i, maps it through the byte LUT and runs merge_warp.cuh's merge_word,
+// carrying its byte offset through every compaction so that each
+// survivor is written in place.  The argmin key is rank * 32 + compacted
+// position where _kernel_seg keys on the original in-word position; both
+// orders are leftmost at equal rank, so both reach the same fixed point.
 //
-// What bounds it.  As for fused_merge: dependent L2 probes per round
-// times the number of rounds, with many resident warps to hide them.
-// The byte loads now start at unaligned word offsets, but a word spans
-// at most two 32-byte sectors and each byte is read once.
+// What bounds it.  Bytes would allow about 8 us per 4 MB chunk (the
+// chunk and the word lists read once, the int32 ids written once).  The
+// bound in practice is the latency of the dependent L2 probe loads per
+// round times the number of rounds, with many resident tiles to hide it;
+// 8-lane tiles keep the lanes of short words busy, where one warp per
+// word left about 27 of 32 lanes idle.
 
 #include <cstdint>
 
@@ -37,42 +44,96 @@
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
+constexpr int kSmall = 8;  // words of up to 8 bytes take an 8-lane tile
 
+// Merge one word held by `tile` (its start and length tile-uniform) and
+// write its survivors in place.
+template <int G, bool kStaged>
+__device__ __forceinline__ void merge_one(const ht::PairTable& table,
+                                          const ht::Tile<G>& tile,
+                                          const int32_t* __restrict__ byte_seed,
+                                          const uint8_t* __restrict__ chunk,
+                                          int64_t start, int len,
+                                          int32_t* __restrict__ out,
+                                          int32_t* stage) {
+  int id = tile.lane < len ? __ldg(byte_seed + chunk[start + tile.lane]) : -1;
+  int off = tile.lane;  // byte offset of this token's first byte in the word
+  const int n = ht::merge_word<G, true, kStaged>(table, tile, len, id, off, stage);
+  if (tile.lane < n) out[start + off] = id;
+}
+
+template <bool kStaged>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 seg_merge_kernel(ht::PairTable table, const int32_t* __restrict__ byte_seed,
                  const uint8_t* __restrict__ chunk,
                  const int32_t* __restrict__ word_start,
                  const int32_t* __restrict__ word_len, int64_t num_words,
                  int32_t* __restrict__ out) {
-  __shared__ int32_t stage_id[kWarpsPerBlock][32];
-  __shared__ int32_t stage_off[kWarpsPerBlock][32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int64_t w = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + warp;
-  if (w >= num_words) return;  // the whole warp leaves together
+  __shared__ int32_t stage[kStaged ? kWarpsPerBlock : 1][64];
+  const int wl = threadIdx.x & 31;
+  int32_t* my_stage = stage[kStaged ? threadIdx.x >> 5 : 0];
+  const int64_t run = (static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock +
+                       (threadIdx.x >> 5)) * 32;
+  if (run >= num_words) return;  // the whole warp leaves together
 
-  const int64_t start = word_start[w];
-  const int len = min(max(word_len[w], 0), 32);
-  int id = lane < len ? __ldg(byte_seed + chunk[start + lane]) : -1;
-  int off = lane;  // byte offset of this token's first byte in the word
-  const int n = ht::merge_word<true>(table, lane, len, id, off,
-                                     stage_id[warp], stage_off[warp]);
-  if (lane < n) out[start + off] = id;
+  // lane i describes word run + i
+  const int64_t wi = run + wl;
+  const int my_len = wi < num_words ? min(max(word_len[wi], 0), 32) : 0;
+  const int my_start = wi < num_words ? word_start[wi] : 0;
+  unsigned small = __ballot_sync(ht::kFullMask, my_len >= 1 && my_len <= kSmall);
+  unsigned large = __ballot_sync(ht::kFullMask, my_len > kSmall);
+
+  // the short words, four at a time: tile k takes the k-th remaining one
+  const ht::Tile<kSmall> tile8(wl);
+  const int k = wl / kSmall;
+  while (small) {  // warp-uniform
+    const unsigned pick = __fns(small, 0, k + 1);  // 0xffffffff: no word
+    const int src = static_cast<int>(pick & 31u);
+    const int len = __shfl_sync(ht::kFullMask, my_len, src);
+    const int start = __shfl_sync(ht::kFullMask, my_start, src);
+    if (pick != 0xffffffffu) {  // tile-uniform
+      merge_one<kSmall, kStaged>(table, tile8, byte_seed, chunk, start, len,
+                                 out, my_stage);
+    }
+    __syncwarp();
+    for (int i = 0; i < 32 / kSmall && small; ++i) small &= small - 1;
+  }
+
+  // the longer words, one at a time across the warp
+  const ht::Tile<32> tile32(wl);
+  while (large) {  // warp-uniform
+    const int src = __ffs(large) - 1;
+    const int len = __shfl_sync(ht::kFullMask, my_len, src);
+    const int start = __shfl_sync(ht::kFullMask, my_start, src);
+    merge_one<32, kStaged>(table, tile32, byte_seed, chunk, start, len, out,
+                           my_stage);
+    large &= large - 1;
+  }
 }
 
 }  // namespace
 
-extern "C" int ht_seg_merge(const int32_t* pkey, const int32_t* pval,
-                            int64_t cap_mask, int32_t probe_len,
-                            const int32_t* byte_seed, const int32_t* minsuper,
-                            int32_t minsuper_len, const uint8_t* chunk,
+// pslots: int32 [C, 4] (key, value, minsuper, 0), 16-byte aligned
+extern "C" int ht_seg_merge(const int32_t* pslots, int64_t cap_mask,
+                            int32_t probe_len, int32_t multi,
+                            const int32_t* byte_seed, const uint8_t* chunk,
                             const int32_t* word_start, const int32_t* word_len,
-                            int64_t num_words, int32_t* out, void* stream) {
-  const ht::PairTable table{pkey, pval, static_cast<unsigned>(cap_mask),
-                            probe_len, minsuper, minsuper_len};
-  const int64_t blocks = (num_words + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  seg_merge_kernel<<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      table, byte_seed, chunk, word_start, word_len, num_words, out);
+                            int64_t num_words, int32_t* out, int32_t staged,
+                            void* stream) {
+  const ht::PairTable table{reinterpret_cast<const int4*>(pslots),
+                            static_cast<unsigned>(cap_mask), probe_len,
+                            multi != 0};
+  const int64_t warps = (num_words + 31) / 32;
+  const int64_t blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (staged) {
+    seg_merge_kernel<true><<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32,
+                             0, st>>>(table, byte_seed, chunk, word_start,
+                                      word_len, num_words, out);
+  } else {
+    seg_merge_kernel<false><<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32,
+                              0, st>>>(table, byte_seed, chunk, word_start,
+                                       word_len, num_words, out);
+  }
   return static_cast<int>(cudaGetLastError());
 }

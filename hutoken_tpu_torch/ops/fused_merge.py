@@ -2,13 +2,18 @@
 CUDA kernel ``csrc/fused_merge.cu`` and its plain PyTorch twin.
 
 The kernel replaces ``hutoken_tpu/ops/pallas_merge.py::_kernel`` /
-``_kernel_body``; the source file says how it is laid out for Hopper.
-Its wide variant, the same kernel on the wide pair table, serves
-vocabularies whose ids or ranks pass 16 bits, where the JAX package runs
-the R-matrix program (``hutoken_tpu/ops/rmatrix.py``).
-:func:`fused_merge` launches the variant of the table's layout for CUDA
-tensors and runs the twin only for CPU tensors: there is no fallback
-from one to the other.
+``_kernel_body`` and the packing after it; the source file says how it
+is laid out for Hopper.  Its wide variant, the same kernel on the wide
+pair table, serves vocabularies whose ids or ranks pass 16 bits, where
+the JAX package runs the R-matrix program (``hutoken_tpu/ops/rmatrix.py``).
+
+:func:`merge_words_from_bytes_fused` is the engine's entry: one launch
+that writes the packed layout of :func:`~hutoken_tpu_torch.ops.merge.
+compact_output` (counts, then every token row-major).  It launches the
+variant of the table's layout for CUDA tensors and runs the twin,
+``compact_output(fused_merge_plain(...))``, only for CPU tensors: there
+is no fallback from one to the other.  :func:`fused_merge` returns the
+twin's unpacked ``(ids, counts)`` for CPU tensors.
 
 The library is built with ``nvcc`` at first use into ``_build/`` (see
 ``ops/build.py``) and bound with ``ctypes``.
@@ -25,6 +30,7 @@ from .build import build_library
 from .merge import INF_RANK, compact_output, probe_pairs
 
 MAX_WORD = 32  # the warp width: one lane per byte
+WARPS_PER_BLOCK = 8  # csrc/fused_merge.cu kWarpsPerBlock
 
 
 def build() -> str:
@@ -37,19 +43,27 @@ def build() -> str:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     p = ctypes.c_void_p
+    i32 = ctypes.c_int32
+    rest = [
+        p, p, p, ctypes.c_int64, i32,  # byte_seed, raw, lens, num_words, width
+        i32, p, p, i32, p,  # u16_out, out, scan, staged, stream
+    ]
     lib.ht_fused_merge.restype = ctypes.c_int
     lib.ht_fused_merge.argtypes = [
-        p, p, ctypes.c_int64, ctypes.c_int32,  # pkey, pval, cap_mask, probe_len
-        p, p, ctypes.c_int32,  # byte_seed, minsuper, minsuper_len
-        p, p, ctypes.c_int64, ctypes.c_int32,  # raw, lens, num_words, width
-        p, p, p,  # out, counts, stream
+        p, ctypes.c_int64, i32, i32,  # pslots, cap_mask, probe_len, multi
+        *rest,
     ]
     lib.ht_fused_merge_wide.restype = ctypes.c_int
     lib.ht_fused_merge_wide.argtypes = [
-        p, ctypes.c_int64, ctypes.c_int32,  # slots, cap_mask, probe_len
-        *lib.ht_fused_merge.argtypes[4:],
+        p, ctypes.c_int64, i32, p, i32,  # slots, cap_mask, probe_len, minsuper, its length
+        *rest,
     ]
     return lib
+
+
+def tile_width(L: int) -> int:
+    """Lanes per word for a block of width ``L``: 8, 16 or 32."""
+    return 8 if L <= 8 else 16 if L <= 16 else 32
 
 
 def _check_inputs(tab, raw: torch.Tensor, lens: torch.Tensor) -> None:
@@ -65,65 +79,94 @@ def _check_inputs(tab, raw: torch.Tensor, lens: torch.Tensor) -> None:
         raise ValueError(f"inputs on {raw.device}/{lens.device}, tables on {tab.device}")
 
 
-def fused_merge(tab, raw: torch.Tensor, lens: torch.Tensor):
-    """Greedy merge of W words of at most 32 bytes.
+def merge_words_from_bytes_fused(
+    tab, raw: torch.Tensor, lens: torch.Tensor, u16_out: bool, *, staged: bool = False
+) -> torch.Tensor:
+    """Byte-mode merge of W words of at most 32 bytes, in the packed
+    layout (the counterpart of ``merge_words_from_bytes_pallas``).
 
     ``raw`` uint8 [W, L <= 32] (row w holds word w's bytes), ``lens``
-    int32 [W].  Returns ``(ids int32 [W, L], counts int32 [W])``: each
-    word's tokens left-compacted, -1 after them.
+    int32 [W].  Returns a 1-D tensor of ``W + W * L`` entries, int16
+    holding uint16 bit patterns when ``u16_out``, else int32: the W
+    per-word token counts, then every word's tokens row-major.  Only
+    that prefix, ``W + sum(counts)`` entries, is defined on the card;
+    the host reads no further.
 
     A CUDA tensor launches the kernel on the current stream without
-    synchronising and adds one to ``fused_merge.launches``, or, on a
-    wide table, launches the wide variant and adds one to
-    ``fused_merge.wide_launches``; a CPU tensor runs
-    :func:`fused_merge_plain`.
+    synchronising and adds one to ``merge_words_from_bytes_fused.
+    launches``, or, on a wide table, launches the wide variant and adds
+    one to ``.wide_launches``; a CPU tensor runs the twin.  ``staged``
+    picks the kernel's shared-memory compaction in place of the one in
+    registers, for timing the two against each other.
     """
     _check_inputs(tab, raw, lens)
     if raw.device.type == "cpu":
-        return fused_merge_plain(tab, raw, lens)
+        return compact_output(fused_merge_plain(tab, raw, lens)[0], u16_out)
     if raw.device.type != "cuda":
         raise ValueError(f"unsupported device {raw.device}")
     W, L = raw.shape
-    out = torch.empty((W, L), dtype=torch.int32, device=raw.device)
-    counts = torch.empty(W, dtype=torch.int32, device=raw.device)
+    out = torch.empty(W + W * L, dtype=torch.int16 if u16_out else torch.int32,
+                      device=raw.device)
     if W == 0:
-        return out, counts
+        return out
     raw = raw.contiguous()
     lens = lens.contiguous()
+    words_per_block = WARPS_PER_BLOCK * (32 // tile_width(L))
+    # the look-back's ticket, then one status word per block
+    scan = torch.zeros(1 + -(-W // words_per_block), dtype=torch.int64, device=raw.device)
     ms = tab.minsuper
     lib = _library()
     with torch.cuda.device(raw.device):
         stream = torch.cuda.current_stream(raw.device).cuda_stream
         rest = (
-            tab.cap_mask, tab.probe_len, tab.byte_seed.data_ptr(),
-            ms.data_ptr() if ms is not None else None,
-            ms.numel() if ms is not None else 0,
-            raw.data_ptr(), lens.data_ptr(), W, L,
-            out.data_ptr(), counts.data_ptr(), stream,
+            tab.byte_seed.data_ptr(), raw.data_ptr(), lens.data_ptr(), W, L,
+            int(u16_out), out.data_ptr(), scan.data_ptr(), int(staged), stream,
         )
         if tab.wide:
-            rc = lib.ht_fused_merge_wide(tab.slots.data_ptr(), *rest)
+            rc = lib.ht_fused_merge_wide(
+                tab.slots.data_ptr(), tab.cap_mask, tab.probe_len,
+                ms.data_ptr() if ms is not None else None,
+                ms.numel() if ms is not None else 0, *rest,
+            )
         else:
-            rc = lib.ht_fused_merge(tab.pkey.data_ptr(), tab.pval.data_ptr(), *rest)
+            rc = lib.ht_fused_merge(
+                tab.pslots.data_ptr(), tab.cap_mask, tab.probe_len, int(ms is not None), *rest,
+            )
     if rc != 0:
         variant = "wide " if tab.wide else ""
         raise RuntimeError(f"fused_merge {variant}kernel launch failed: CUDA error {rc}")
     if tab.wide:
-        fused_merge.wide_launches += 1
+        merge_words_from_bytes_fused.wide_launches += 1
     else:
-        fused_merge.launches += 1
-    return out, counts
+        merge_words_from_bytes_fused.launches += 1
+    return out
 
 
-fused_merge.launches = 0
-fused_merge.wide_launches = 0
+merge_words_from_bytes_fused.launches = 0
+merge_words_from_bytes_fused.wide_launches = 0
+
+
+def fused_merge(tab, raw: torch.Tensor, lens: torch.Tensor):
+    """Greedy merge of W words of at most 32 bytes, unpacked, on CPU
+    tensors: ``(ids int32 [W, L], counts int32 [W])``, each word's tokens
+    left-compacted, -1 after them (:func:`fused_merge_plain`).  The
+    kernel writes the packed layout only: on the card call
+    :func:`merge_words_from_bytes_fused`."""
+    _check_inputs(tab, raw, lens)
+    if raw.device.type != "cpu":
+        raise ValueError(
+            "fused_merge returns the twin's (ids, counts) for CPU tensors; the "
+            "kernel writes the packed layout: call merge_words_from_bytes_fused"
+        )
+    return fused_merge_plain(tab, raw, lens)
 
 
 def fused_merge_plain(tab, raw: torch.Tensor, lens: torch.Tensor):
     """The kernel's rounds in plain PyTorch on [W, L] tensors: same
     probe (of the table's layout), same minimum, same multi-merge guard,
-    same per-round compaction.  Runs on any device; :func:`fused_merge` uses it for CPU
-    tensors, and the kernel is held against it on the card."""
+    same per-round compaction.  Runs on any device; for CPU tensors
+    :func:`merge_words_from_bytes_fused` packs it with ``compact_output``,
+    and on the card the kernel is held against that on the read prefix."""
     ids, n, _tags = merge_rounds(tab, raw, lens)
     return ids, n
 
@@ -175,13 +218,3 @@ def merge_rounds(tab, raw: torch.Tensor, lens: torch.Tensor, tags=None):
             tags = nxt_tags[:, :L]
         n = keep.sum(dim=1, keepdim=True)
     return ids.to(torch.int32), n.squeeze(1).to(torch.int32), tags
-
-
-def merge_words_from_bytes_fused(
-    tab, raw: torch.Tensor, lens: torch.Tensor, u16_out: bool
-) -> torch.Tensor:
-    """Byte-mode merge of words of <= 32 bytes in the packed layout of
-    :func:`~hutoken_tpu_torch.ops.merge.compact_output` (the counterpart
-    of ``merge_words_from_bytes_pallas``)."""
-    ids, _counts = fused_merge(tab, raw, lens)
-    return compact_output(ids, u16_out)

@@ -153,17 +153,19 @@ def compact_output(out_ids: torch.Tensor, u16_out: bool) -> torch.Tensor:
 
     ``u16_out`` returns int16 holding the uint16 bit patterns (torch's
     uint16 lacks most ops); the host views the copy as ``np.uint16``.
+    Its ops run under a profiler span named ``compact_output``.
     """
-    W, L = out_ids.shape
-    valid = out_ids >= 0
-    counts = valid.sum(dim=1, dtype=torch.int32)
-    row_base = torch.cumsum(counts, 0) - counts
-    pos = torch.cumsum(valid.to(torch.int32), dim=1) - 1
-    dest = (row_base[:, None] + pos)[valid].to(torch.int64)
-    flat = torch.zeros(W * L, dtype=torch.int32, device=out_ids.device)
-    flat[dest] = out_ids[valid].to(torch.int32)
-    packed = torch.cat([counts, flat])
-    return packed.to(torch.int16) if u16_out else packed
+    with torch.profiler.record_function("compact_output"):
+        W, L = out_ids.shape
+        valid = out_ids >= 0
+        counts = valid.sum(dim=1, dtype=torch.int32)
+        row_base = torch.cumsum(counts, 0) - counts
+        pos = torch.cumsum(valid.to(torch.int32), dim=1) - 1
+        dest = (row_base[:, None] + pos)[valid].to(torch.int64)
+        flat = torch.zeros(W * L, dtype=torch.int32, device=out_ids.device)
+        flat[dest] = out_ids[valid].to(torch.int32)
+        packed = torch.cat([counts, flat])
+        return packed.to(torch.int16) if u16_out else packed
 
 
 def seed_from_bytes(byte_seed: torch.Tensor, raw: torch.Tensor, lens: torch.Tensor):

@@ -19,7 +19,6 @@ from .build import build_library
 from .fused_merge import MAX_WORD, merge_rounds
 
 
-
 def build() -> str:
     """Compile the kernel (once per digest of its source and headers);
     returns the shared library's path."""
@@ -32,10 +31,9 @@ def _library() -> ctypes.CDLL:
     p = ctypes.c_void_p
     lib.ht_seg_merge.restype = ctypes.c_int
     lib.ht_seg_merge.argtypes = [
-        p, p, ctypes.c_int64, ctypes.c_int32,  # pkey, pval, cap_mask, probe_len
-        p, p, ctypes.c_int32,  # byte_seed, minsuper, minsuper_len
-        p, p, p, ctypes.c_int64,  # chunk, word_start, word_len, num_words
-        p, p,  # out, stream
+        p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,  # pslots, cap_mask, probe_len, multi
+        p, p, p, p, ctypes.c_int64,  # byte_seed, chunk, word_start, word_len, num_words
+        p, ctypes.c_int32, p,  # out, staged, stream
     ]
     return lib
 
@@ -59,7 +57,7 @@ def _check_inputs(tab, chunk, word_start, word_len) -> None:
 
 
 def seg_merge(tab, chunk: torch.Tensor, word_start: torch.Tensor,
-              word_len: torch.Tensor) -> torch.Tensor:
+              word_len: torch.Tensor, *, staged: bool = False) -> torch.Tensor:
     """Greedy merge of W words of a chunk, in place.
 
     ``chunk`` uint8 [N]; word w is ``chunk[word_start[w] :
@@ -70,7 +68,9 @@ def seg_merge(tab, chunk: torch.Tensor, word_start: torch.Tensor,
 
     A CUDA tensor launches the kernel on the current stream without
     synchronising (and adds one to ``seg_merge.launches``); a CPU tensor
-    runs :func:`seg_merge_plain`.
+    runs :func:`seg_merge_plain`.  ``staged`` picks the kernel's
+    shared-memory compaction in place of the one in registers, for
+    timing the two against each other.
     """
     _check_inputs(tab, chunk, word_start, word_len)
     if chunk.device.type == "cpu":
@@ -84,16 +84,12 @@ def seg_merge(tab, chunk: torch.Tensor, word_start: torch.Tensor,
     chunk = chunk.contiguous()
     word_start = word_start.contiguous()
     word_len = word_len.contiguous()
-    ms = tab.minsuper
     with torch.cuda.device(chunk.device):
         stream = torch.cuda.current_stream(chunk.device).cuda_stream
         rc = _library().ht_seg_merge(
-            tab.pkey.data_ptr(), tab.pval.data_ptr(), tab.cap_mask, tab.probe_len,
-            tab.byte_seed.data_ptr(),
-            ms.data_ptr() if ms is not None else None,
-            ms.numel() if ms is not None else 0,
-            chunk.data_ptr(), word_start.data_ptr(), word_len.data_ptr(), W,
-            out.data_ptr(), stream,
+            tab.pslots.data_ptr(), tab.cap_mask, tab.probe_len, int(tab.minsuper is not None),
+            tab.byte_seed.data_ptr(), chunk.data_ptr(), word_start.data_ptr(),
+            word_len.data_ptr(), W, out.data_ptr(), int(staged), stream,
         )
     if rc != 0:
         raise RuntimeError(f"seg_merge kernel launch failed: CUDA error {rc}")

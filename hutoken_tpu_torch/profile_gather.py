@@ -9,7 +9,9 @@ kernels of ``ops/gather.py`` and their plain PyTorch twins.
 For each shape it checks kernel == twin exactly (and, for the two-level
 gather, the script's composed semantics and whether it happens to equal
 a true gather) and prints both times with CUDA events and both rates in
-M lookups/s.  The scripts' XLA-only sections (``profile_gather3.py``
+M lookups/s, beside the shape's bound (the bytes it must move at the
+card's memory rate) and the time of one PyTorch call computing the same
+function on indices prepared beforehand, a yardstick only.  The scripts' XLA-only sections (``profile_gather3.py``
 sections 1 and 2) become rows whose plain time is the point; the kernel
 of the same function runs beside them.  Inputs are drawn on the device
 from a seeded generator.  Without a CUDA device it exits with an error:
@@ -30,6 +32,7 @@ import torch
 from .ops import gather as G
 
 REPS = 20  # timed calls per kernel and shape
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 SEED = 0
 LEAD_CYCLES = 1 << 25  # first length of the sleep that leads each timed loop
 LEAD_DOUBLINGS = 4  # times the sleep may double before the timer gives up
@@ -132,6 +135,39 @@ def kernel_and_twin(probe: str) -> tuple[Callable, Callable]:
     }[probe]
 
 
+def library_call(probe: str, args: tuple) -> Optional[Callable]:
+    """One PyTorch call computing the probe's function, its indices
+    widened to int64 beforehand; None for the two-level gather, whose
+    composed semantics take two calls."""
+    table, idx = args
+    idx64 = idx.to(torch.int64)
+    if probe in ("take", "taa"):
+        return lambda: table[idx64]
+    if probe == "rows":
+        return lambda: torch.gather(table, 1, idx64)
+    if probe == "cols":
+        return lambda: torch.gather(table, 0, idx64)
+    return None
+
+
+def bound_bytes(probe: str, args: tuple) -> int:
+    """The bytes a call must move: every index read once, every output
+    written once, and each table entry these indices reach read once."""
+    table, idx = args
+    idx64 = idx.to(torch.int64)
+    if probe in ("take", "taa"):
+        reached = idx64
+    elif probe == "two_level":
+        lanes = idx64 & (G.LANES - 1)
+        reached = torch.gather(idx64 >> 7, 1, lanes) * G.LANES + lanes
+    elif probe == "rows":
+        reached = torch.arange(idx64.shape[0], device=idx.device)[:, None] * table.shape[1] + idx64
+    else:  # cols
+        reached = idx64 * table.shape[1] + torch.arange(idx64.shape[1], device=idx.device)
+    entries = int(torch.unique(reached).numel())
+    return 4 * (entries + 2 * idx.numel())
+
+
 def cuda_time(fn) -> float:
     """Device ms per call of ``fn`` over ``REPS`` back-to-back calls, by
     CUDA events, after one warm call.
@@ -189,6 +225,9 @@ def run_case(case: Case, device, gen: torch.Generator,
     if timer is not None:
         row["ms"] = timer(lambda: kernel(*args))
         row["plain_ms"] = timer(lambda: twin(*args))
+        lib = library_call(case.probe, args)
+        row["library_ms"] = timer(lib) if lib is not None else None
+        row["bound_ms"] = bound_bytes(case.probe, args) / HBM_BYTES_PER_S * 1e3
     return row
 
 
@@ -213,8 +252,12 @@ def run(device, cases: Optional[list[Case]] = None, timer: Optional[Callable] = 
             times = "times not measured"
         else:
             n = case.lookups
+            lib = row["library_ms"]
             times = (f"kernel {row['ms']:.4f} ms ({n / row['ms'] / 1e3:.0f} M/s), "
-                     f"twin {row['plain_ms']:.4f} ms ({n / row['plain_ms'] / 1e3:.0f} M/s)")
+                     f"twin {row['plain_ms']:.4f} ms ({n / row['plain_ms'] / 1e3:.0f} M/s), "
+                     f"one PyTorch call {'%.4f ms' % lib if lib is not None else 'none'}, "
+                     f"bound {row['bound_ms']:.4f} ms (bytes), "
+                     f"share {row['bound_ms'] / row['ms']:.3f}")
         prefix = f"[{label}] " if label else ""
         print(f"{prefix}gather probe {what:18s} {case.name:24s} ({case.origin}): "
               f"kernel == twin (max_abs_err {row['max_abs_err']}, tolerance 0);{extra} {times}",

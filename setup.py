@@ -47,16 +47,21 @@ else:
     ]
     _link_args = ["-pthread"]
 
-native_ext = Extension(
-    "hutoken_tpu._native.libhutoken_host",
-    sources=["native/src/hutoken_host.cpp"],
-    language="c++",
-    extra_compile_args=_compile_args,
-    extra_link_args=_link_args,
-    optional=True,  # graceful pure-Python fallback
-)
+# one build of the same library for each package: the PyTorch port
+# (hutoken_tpu_torch) loads its own copy and imports nothing of hutoken_tpu
+native_exts = [
+    Extension(
+        f"{pkg}._native.libhutoken_host",
+        sources=["native/src/hutoken_host.cpp"],
+        language="c++",
+        extra_compile_args=_compile_args,
+        extra_link_args=_link_args,
+        optional=True,  # graceful pure-Python fallback
+    )
+    for pkg in ("hutoken_tpu", "hutoken_tpu_torch")
+]
 
 setup(
-    ext_modules=[native_ext],
+    ext_modules=native_exts,
     cmdclass={"build_ext": NativeLibBuild},
 )

@@ -131,10 +131,12 @@ def test_foma_unavailable_raises():
         hutoken.look_up_word(None, "ház")
 
 
-def test_import_and_encode_leave_jax_unloaded():
+def test_import_and_encode_leave_jax_unloaded(tmp_path):
     """tests/conftest.py imports jax into this process, so the check
-    runs in a fresh interpreter; it covers the word pipeline and the raw
-    path (whose JAX counterpart imports jax when it runs)."""
+    runs in a fresh interpreter; it covers initialize, the word pipeline
+    and the raw path (whose JAX counterpart imports jax when it runs),
+    batch decode and both trainers: neither ``jax`` nor any module of
+    the JAX package ``hutoken_tpu`` loads."""
     v, s = ft.write_byte_level_fixture()
     code = (
         "import os, sys, torch; torch.set_num_threads(1)\n"
@@ -146,13 +148,17 @@ def test_import_and_encode_leave_jax_unloaded():
         "os.environ['HUTOKEN_TPU_RAW'] = '1'\n"
         "assert ht.batch_encode(['a gyors barna róka', ' The quick brown fox']) == out\n"
         "assert ht._engine._raw_enc is not None and ht._engine.stat_device_bytes > 0\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        "assert ht.batch_decode(out) == ['a gyors barna róka', ' The quick brown fox']\n"
+        "assert os.path.isfile(ht.bpe_train('a gyors barna róka ' * 20, 260, 'b.txt', verbose=False))\n"
+        "assert os.path.isfile(ht.bbpe_train('a gyors barna róka ' * 20, 260, 'bb.txt', verbose=False))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'hutoken_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, HOME=str(tmp_path))
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=120,
     )
-    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+    # the trainers print where they saved the vocabulary
+    assert proc.returncode == 0 and proc.stdout.strip().splitlines()[-1] == "ok", proc.stderr

@@ -123,26 +123,40 @@ def test_fused_merge_checks_inputs():
         FM.fused_merge(tab, ok.to(torch.int32), lens)
     with pytest.raises(ValueError, match="lens"):
         FM.fused_merge(tab, ok, lens.to(torch.int64))
-    launches = FM.fused_merge.launches
+    launches = FM.merge_words_from_bytes_fused.launches
     ids, counts = FM.fused_merge(tab, ok, lens)  # CPU tensors: the twin
-    assert FM.fused_merge.launches == launches
+    packed = FM.merge_words_from_bytes_fused(tab, ok, lens, True)
+    assert FM.merge_words_from_bytes_fused.launches == launches
     assert ids.shape == (4, 8) and counts.tolist() == [0, 0, 0, 0]
+    assert packed.dtype == torch.int16 and packed.shape == (4 + 4 * 8,)
+    assert packed[:4].tolist() == [0, 0, 0, 0]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", tp.BYTE_CONFIGS)
 def test_kernel_matches_twin_on_cuda(name):
+    """The packed kernel against ``compact_output`` of the twin on the
+    prefix the host reads, at widths 8, 16 and 32, both compactions:
+    rows of length 0 and 1 mixed with long rows, and blocks of 12,345
+    words, so that hundreds of blocks look back across each other."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     ctx, enc = tp.load(name)
+    from hutoken_tpu_torch.ops.merge import compact_output
     from hutoken_tpu_torch.tables import device_tables
 
     tab = device_tables(enc, ctx, "cuda")
     rng = np.random.default_rng(4)
     for width in (8, 16, 32):
         raw, lens = tp.word_block(rng, 12345, width, charset=tp.HIGH_BYTES)
+        lens[rng.random(lens.shape[0]) < 0.2] = 0
+        lens[rng.random(lens.shape[0]) < 0.2] = 1
         r, n = torch.from_numpy(raw).cuda(), torch.from_numpy(lens).cuda()
-        got = FM.fused_merge(tab, r, n)
-        want = FM.fused_merge_plain(tab, r, n)
-        torch.cuda.synchronize()
-        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        want = compact_output(FM.fused_merge_plain(tab, r, n)[0], True)
+        read = 12345 + int(want[:12345].to(torch.int64).sum())
+        for staged in (False, True):
+            launches = FM.merge_words_from_bytes_fused.launches
+            got = FM.merge_words_from_bytes_fused(tab, r, n, True, staged=staged)
+            torch.cuda.synchronize()
+            assert FM.merge_words_from_bytes_fused.launches == launches + 1
+            assert torch.equal(got[:read], want[:read])

@@ -282,6 +282,41 @@ def test_probe_inputs_tell_a_wrong_kernel_from_the_twin(probe, dims, wrong):
     assert not torch.equal(wrong(*args), twin(*args))
 
 
+@pytest.mark.parametrize("probe,dims", [
+    ("take", dict(C=512, N=256)),
+    ("taa", dict(C=512, N=256)),
+    ("two_level", dict(C=2048, N=512)),
+    ("rows", dict(W=16, C2=128, L=32)),
+    ("cols", dict(C=64, N=256)),
+])
+def test_library_call_and_bound_of_each_probe(probe, dims):
+    """The yardstick call computes the twin's function (none for the
+    two-level gather's composed semantics), and the bound counts each
+    index and output once and each table entry the indices reach once."""
+    gen = torch.Generator()
+    gen.manual_seed(PG.SEED)
+    args = PG.make_inputs(PG.Case(probe, "t", dims), gen, "cpu")
+    _kernel, twin = PG.kernel_and_twin(probe)
+    lib = PG.library_call(probe, args)
+    if probe == "two_level":
+        assert lib is None
+    else:
+        assert torch.equal(lib(), twin(*args))
+    table, idx = args
+    nbytes = PG.bound_bytes(probe, args)
+    assert 8 * idx.numel() < nbytes <= 4 * (table.numel() + 2 * idx.numel())
+    if probe in ("take", "taa"):
+        assert nbytes == 4 * (int(torch.unique(idx).numel()) + 2 * idx.numel())
+
+
+def test_probe_times_carry_bound_and_library_call():
+    rows = PG.run("cpu", cases=[PG.Case("take", "t", dict(C=512, N=256)),
+                                PG.Case("two_level", "t", dict(C=2048, N=512))],
+                  timer=lambda fn: (fn(), 1.0)[1], out=io.StringIO())
+    assert rows[0]["library_ms"] == 1.0 and rows[1]["library_ms"] is None
+    assert all(0 < r["bound_ms"] < 1e-3 for r in rows)
+
+
 class _FakeCuda:
     """A stream whose clock moves by the sleep's cycles and the calls'
     device time, and a host clock that moves by each call's enqueue."""

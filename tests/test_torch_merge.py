@@ -165,3 +165,27 @@ def test_device_tables_refuse_ranks_past_the_kernel_bound():
     device_tables(_wide_enc({(70000, 1): ((1 << 26) - 1, 70001)}), None, "cpu")
     with pytest.raises(ValueError, match="rank 67108864 does not fit the merge kernel"):
         device_tables(_wide_enc({(70000, 1): (1 << 26, 70001)}), None, "cpu")
+
+
+@pytest.mark.parametrize("name", ["small", "big-vocab", "big-merges", "charmode"])
+def test_interleaved_slots_equal_the_packed_arrays(name):
+    """The kernels' 16-byte narrow slots hold, slot for slot, the packed
+    key and value of the JAX layout and the minsuper bound of the slot's
+    rank (0 in empty slots, and everywhere without a bound)."""
+    ctx, enc = tp.load(name)
+    tab = device_tables(enc, ctx, "cpu")
+    pkey, pval = enc.pair_table.packed_arrays()
+    slots = tab.pslots.numpy()
+    assert slots.shape == (enc.pair_table.capacity, 4) and slots.dtype == np.int32
+    assert np.array_equal(slots[:, 0], pkey) and np.array_equal(slots[:, 1], pval)
+    assert np.array_equal(tab.pkey.numpy(), pkey) and np.array_equal(tab.pval.numpy(), pval)
+    real = enc.pair_table.left >= 0
+    want_ms = np.zeros(real.shape[0], dtype=np.int32)
+    if tab.minsuper is not None:
+        want_ms[real] = tab.minsuper.numpy()[enc.pair_table.rank[real]]
+        ms = PM.build_minsuper(enc.pairs, ctx.vocab.id2str)
+        assert np.array_equal(slots[real, 2], np.asarray(ms)[enc.pair_table.rank[real]])
+    else:
+        assert name == "charmode"  # no byte seeds: single-merge rounds
+    assert np.array_equal(slots[:, 2], want_ms)
+    assert not slots[:, 3].any()
