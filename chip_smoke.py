@@ -17,15 +17,15 @@ own:
    prefix the host reads: the fused merge, which writes the packed
    layout, against ``compact_output`` of its plain twin for the small,
    big-vocab and big-merges tables at widths 8, 16 and 32 (rows of
-   length 0 and 1 among long rows, with both of the kernel's
-   compactions), each width timed on 16,384 corpus words beside
+   length 0 and 1 among long rows), each width timed on 16,384 corpus
+   words beside
    ``compact_output`` alone on the same block (what the padded kernel of
    earlier versions needed after it); the segmented merge on mixed
    chunks (ASCII, Hungarian accents, words of 1-32 and over 32 bytes,
-   document resets) and on a chunk whose every 32-word run holds every
-   length 0-32 with an 8-byte word that merges for more rounds than the
-   other short words, timed on one raw-path chunk (4 MB) of the unique
-   corpus.  Each kernel's bound counts the bytes it must move, the pair
+   document resets) and on a chunk of Zipf-corpus words whose every
+   32-word run holds every length 0-32 with an 8-byte word that merges
+   for more rounds than the other short words, timed on one raw-path
+   chunk (4 MB) of the unique corpus.  Each kernel's bound counts the bytes it must move, the pair
    table's slots as the plain run probes them;
 4. gather probe: ``hutoken_tpu_torch.profile_gather`` at every shape of
    the three TPU gather-profiling scripts, each gather kernel equal to
@@ -422,7 +422,7 @@ def fused_vs_plain(device: str, docs: list[str], label: str, configs: dict) -> d
     the card for each of ``configs`` (name -> paths; all narrow or all
     wide, the variant each launches), on the prefix the host reads, at
     widths 8, 16 and 32; then each width timed on corpus words, with
-    both compactions, the twin and ``compact_output`` alone beside it.
+    the twin and ``compact_output`` alone beside it.
     A wide table's corpus words must give ids of 0x10000 or more."""
     import torch
 
@@ -442,13 +442,12 @@ def fused_vs_plain(device: str, docs: list[str], label: str, configs: dict) -> d
             r, n = torch.from_numpy(raw).to(device), torch.from_numpy(lens).to(device)
             want = compact_output(FM.fused_merge_plain(tab, r, n)[0], u16)
             read = CHECK_WORDS + int(want[:CHECK_WORDS].to(torch.int64).sum())
-            for staged in (False, True):
-                got = FM.merge_words_from_bytes_fused(tab, r, n, u16, staged=staged)
-                err = int((got[:read].to(torch.int64) - want[:read].to(torch.int64)).abs().max())
-                result["max_abs_err"] = max(result["max_abs_err"], err)
-                check(err == 0, f"packed kernel == packed twin ({name}, L={width}, staged={staged})")
+            got = FM.merge_words_from_bytes_fused(tab, r, n, u16)
+            err = int((got[:read].to(torch.int64) - want[:read].to(torch.int64)).abs().max())
+            result["max_abs_err"] = max(result["max_abs_err"], err)
+            check(err == 0, f"packed kernel == packed twin ({name}, L={width})")
             print(f"kernel vs plain  {name:11s} W={CHECK_WORDS} L={width}: packed prefix of "
-                  f"{read} entries equal, both compactions (max_abs_err 0, tolerance 0); "
+                  f"{read} entries equal (max_abs_err 0, tolerance 0); "
                   f"words merged {int((want[:CHECK_WORDS].to(torch.int32) < n).sum())}")
         for width in (8, 16, 32):
             raw, lens = corpus_block(docs, rng, BLOCK_WORDS, width)
@@ -466,20 +465,17 @@ def fused_vs_plain(device: str, docs: list[str], label: str, configs: dict) -> d
                       + read * want.element_size() + scan_bytes)
             # in turns, inside this call; the pair table is meant to stay
             # in L2, so launches are not separated by a cache flush
-            k1 = kernel_ms(lambda: FM.merge_words_from_bytes_fused(tab, r, n, u16))
-            s1 = kernel_ms(lambda: FM.merge_words_from_bytes_fused(tab, r, n, u16, staged=True))
-            s2 = kernel_ms(lambda: FM.merge_words_from_bytes_fused(tab, r, n, u16, staged=True))
-            k2 = kernel_ms(lambda: FM.merge_words_from_bytes_fused(tab, r, n, u16))
-            c1 = time_ms(lambda: compact_output(ids, u16), 10)
             p1 = time_ms(lambda: compact_output(FM.fused_merge_plain(tab, r, n)[0], u16), 2)
-            row = {"ms": (k1 + k2) / 2, "staged_ms": (s1 + s2) / 2, "plain_ms": p1,
-                   "compact_output_ms": c1, **bound_entry(nbytes)}
+            k1 = kernel_ms(lambda: FM.merge_words_from_bytes_fused(tab, r, n, u16))
+            c1 = time_ms(lambda: compact_output(ids, u16), 10)
+            k2 = kernel_ms(lambda: FM.merge_words_from_bytes_fused(tab, r, n, u16))
+            row = {"ms": (k1 + k2) / 2, "plain_ms": p1, "compact_output_ms": c1,
+                   **bound_entry(nbytes)}
             result["by"][f"{name} L={width}"] = row
             print(f"[{label}] fused merge {name:11s} {BLOCK_WORDS}x{width} corpus words: "
-                  f"kernel {k1:.4f} / {k2:.4f} ms (registers), {s1:.4f} / {s2:.4f} ms "
-                  f"(shared memory); twin + compact_output {p1:.3f} ms; compact_output "
-                  f"alone {c1:.4f} ms; bound {row['bound_ms']:.5f} ms ({nbytes} B), "
-                  f"share {row['bound_ms'] / row['ms']:.3f}")
+                  f"kernel {k1:.4f} / {k2:.4f} ms; twin + compact_output {p1:.3f} ms; "
+                  f"compact_output alone {c1:.4f} ms; bound {row['bound_ms']:.5f} ms "
+                  f"({nbytes} B), share {row['bound_ms'] / row['ms']:.3f}")
     return result
 
 
@@ -584,9 +580,10 @@ def length_chunk(device: str, tab, docs: list[str], rng):
             torch.tensor(lens, dtype=torch.int32, device=device)), (long_rounds, short_rounds)
 
 
-def seg_vs_plain(device: str, docs: list[str], label: str) -> dict:
-    """Phase 3, segmented merge: kernel == twin on the card, both
-    compactions; times on one raw-path chunk of the unique corpus."""
+def seg_vs_plain(device: str, docs: list[str], words: list[str], label: str) -> dict:
+    """Phase 3, segmented merge: kernel == twin on the card, the
+    every-length chunk made of the words of ``words``; times on one
+    raw-path chunk of ``docs``, the unique corpus."""
     import torch
 
     from hutoken_tpu_torch.ops import seg_merge as SM
@@ -601,17 +598,16 @@ def seg_vs_plain(device: str, docs: list[str], label: str) -> dict:
         tab = device_tables(enc, ctx, device)
         chunk, ends = mixed_chunk(rng, MIXED_WORDS)
         check(S.supported_alphabet(chunk), "mixed chunk is in the device alphabet")
-        lengths, (long_r, short_r) = length_chunk(device, tab, docs, rng)
+        lengths, (long_r, short_r) = length_chunk(device, tab, words, rng)
         check(long_r > short_r, f"{name}: the 8-byte word merges for more rounds ({long_r}) "
               f"than the shorter ones ({short_r})")
         for what, args in (("mixed", seg_inputs(device, chunk, ends)), ("every length", lengths)):
             want = SM.seg_merge_plain(tab, *args)
-            for staged in (False, True):
-                err = int((SM.seg_merge(tab, *args, staged=staged) - want).abs().max())
-                result["max_abs_err"] = max(result["max_abs_err"], err)
-                check(err == 0, f"seg kernel == plain twin ({name}, {what}, staged={staged})")
+            err = int((SM.seg_merge(tab, *args) - want).abs().max())
+            result["max_abs_err"] = max(result["max_abs_err"], err)
+            check(err == 0, f"seg kernel == plain twin ({name}, {what})")
             print(f"seg kernel vs plain {name:10s} {what} chunk {args[0].shape[0]} B, "
-                  f"{args[1].shape[0]} words: max_abs_err 0 (tolerance 0), both compactions; "
+                  f"{args[1].shape[0]} words: max_abs_err 0 (tolerance 0); "
                   f"tokens {int((want >= 0).sum())}"
                   + (f"; 8-byte word {long_r} rounds, shorter ones at most {short_r}"
                      if what == "every length" else ""))
@@ -621,17 +617,14 @@ def seg_vs_plain(device: str, docs: list[str], label: str) -> dict:
         check(torch.equal(SM.seg_merge(tab, *args), want), f"seg kernel == plain twin on a raw chunk ({name})")
         n = args[0].shape[0]
         nbytes = n + 8 * args[1].shape[0] + 1024 + probed_slot_bytes(tab, pairs) + 4 * n
-        k1 = kernel_ms(lambda: SM.seg_merge(tab, *args))
-        s1 = kernel_ms(lambda: SM.seg_merge(tab, *args, staged=True))
-        s2 = kernel_ms(lambda: SM.seg_merge(tab, *args, staged=True))
-        k2 = kernel_ms(lambda: SM.seg_merge(tab, *args))
         p1 = time_ms(lambda: SM.seg_merge_plain(tab, *args), 2)
-        row = {"ms": (k1 + k2) / 2, "staged_ms": (s1 + s2) / 2, "plain_ms": p1, **bound_entry(nbytes)}
+        k1 = kernel_ms(lambda: SM.seg_merge(tab, *args))
+        k2 = kernel_ms(lambda: SM.seg_merge(tab, *args))
+        row = {"ms": (k1 + k2) / 2, "plain_ms": p1, **bound_entry(nbytes)}
         result["by"][name] = row
         print(f"[{label}] seg merge {name:10s} raw chunk {n} B, {args[1].shape[0]} words: "
-              f"kernel {k1:.4f} / {k2:.4f} ms (registers), {s1:.4f} / {s2:.4f} ms (shared "
-              f"memory); twin {p1:.3f} ms; bound {row['bound_ms']:.5f} ms ({nbytes} B), "
-              f"share {row['bound_ms'] / row['ms']:.3f}")
+              f"kernel {k1:.4f} / {k2:.4f} ms; twin {p1:.3f} ms; bound "
+              f"{row['bound_ms']:.5f} ms ({nbytes} B), share {row['bound_ms'] / row['ms']:.3f}")
     return result
 
 
@@ -964,7 +957,6 @@ def merge_entry(name, source, replaces, launches, per_run, res, key, by) -> dict
         "share": row["bound_ms"] / row["ms"],
         "shape": key,
         f"ms_by_{by}": {k: r["ms"] for k, r in res["by"].items()},
-        f"staged_ms_by_{by}": {k: r["staged_ms"] for k, r in res["by"].items()},
         f"plain_ms_by_{by}": {k: r["plain_ms"] for k, r in res["by"].items()},
         f"bound_ms_by_{by}": {k: r["bound_ms"] for k, r in res["by"].items()},
         **({"compact_output_ms_by_block": {k: r["compact_output_ms"] for k, r in res["by"].items()}}
@@ -1012,7 +1004,7 @@ def main() -> int:
     # 3. kernel vs plain
     kv = fused_vs_plain(device, unique, label,
                         {n: fixture_paths(n) for n in ("small", "big-vocab", "big-merges")})
-    sv = seg_vs_plain(device, unique, label)
+    sv = seg_vs_plain(device, unique, zipf, label)
 
     # 4. gather probe; counts are zeroed inside, right before the run
     t0 = time.perf_counter()

@@ -89,7 +89,7 @@ __device__ long long look_back(unsigned long long* status, int block,
   return prefix;
 }
 
-template <int G, bool kStaged, class Table, typename OutT>
+template <int G, class Table, typename OutT>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 fused_merge_kernel(Table table, const int32_t* __restrict__ byte_seed,
                    const uint8_t* __restrict__ raw,
@@ -97,7 +97,7 @@ fused_merge_kernel(Table table, const int32_t* __restrict__ byte_seed,
                    int width, OutT* __restrict__ out,
                    unsigned long long* __restrict__ scan) {
   constexpr int kWords = kWarpsPerBlock * (32 / G);  // words per block
-  __shared__ int32_t stage[kStaged ? kWarpsPerBlock : 1][32];
+  __shared__ int32_t stage[kWarpsPerBlock][32];
   __shared__ int s_block;
   __shared__ int s_excl[kWords];
   __shared__ long long s_base;
@@ -116,8 +116,7 @@ fused_merge_kernel(Table table, const int32_t* __restrict__ byte_seed,
     const int len = min(max(lens[w], 0), width);
     id = tile.lane < len ? __ldg(byte_seed + raw[w * width + tile.lane]) : -1;
     int unused = 0;
-    n = ht::merge_word<G, false, kStaged>(table, tile, len, id, unused,
-                                          stage[kStaged ? warp : 0]);
+    n = ht::merge_word<G, false>(table, tile, len, id, unused, stage[warp]);
   }
   if (tile.lane == 0) s_excl[slot] = n;
   __syncthreads();
@@ -146,53 +145,43 @@ fused_merge_kernel(Table table, const int32_t* __restrict__ byte_seed,
   }
 }
 
-template <int G, bool kStaged, class Table, typename OutT>
+template <int G, class Table, typename OutT>
 void launch_g(const Table& table, const int32_t* byte_seed, const uint8_t* raw,
               const int32_t* lens, int64_t num_words, int32_t width, OutT* out,
               unsigned long long* scan, cudaStream_t stream) {
   constexpr int kWords = kWarpsPerBlock * (32 / G);
   const int64_t blocks = (num_words + kWords - 1) / kWords;
-  fused_merge_kernel<G, kStaged><<<static_cast<unsigned>(blocks),
-                                   kWarpsPerBlock * 32, 0, stream>>>(
-      table, byte_seed, raw, lens, num_words, width, out, scan);
+  fused_merge_kernel<G><<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32, 0,
+                          stream>>>(table, byte_seed, raw, lens, num_words,
+                                    width, out, scan);
 }
 
-template <bool kStaged, class Table, typename OutT>
-void launch_w(const Table& table, const int32_t* byte_seed, const uint8_t* raw,
-              const int32_t* lens, int64_t num_words, int32_t width, OutT* out,
-              unsigned long long* scan, cudaStream_t stream) {
+template <class Table, typename OutT>
+int launch_typed(const Table& table, const int32_t* byte_seed,
+                 const uint8_t* raw, const int32_t* lens, int64_t num_words,
+                 int32_t width, OutT* out, int64_t* scan, void* stream) {
+  auto* sc = reinterpret_cast<unsigned long long*>(scan);
+  auto st = static_cast<cudaStream_t>(stream);
   if (width <= 8) {
-    launch_g<8, kStaged>(table, byte_seed, raw, lens, num_words, width, out, scan, stream);
+    launch_g<8>(table, byte_seed, raw, lens, num_words, width, out, sc, st);
   } else if (width <= 16) {
-    launch_g<16, kStaged>(table, byte_seed, raw, lens, num_words, width, out, scan, stream);
+    launch_g<16>(table, byte_seed, raw, lens, num_words, width, out, sc, st);
   } else {
-    launch_g<32, kStaged>(table, byte_seed, raw, lens, num_words, width, out, scan, stream);
+    launch_g<32>(table, byte_seed, raw, lens, num_words, width, out, sc, st);
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <class Table>
 int launch(const Table& table, const int32_t* byte_seed, const uint8_t* raw,
            const int32_t* lens, int64_t num_words, int32_t width,
-           int32_t u16_out, void* out, int64_t* scan, int32_t staged,
-           void* stream) {
-  auto* sc = reinterpret_cast<unsigned long long*>(scan);
-  auto st = static_cast<cudaStream_t>(stream);
+           int32_t u16_out, void* out, int64_t* scan, void* stream) {
   if (u16_out) {
-    auto* o = static_cast<int16_t*>(out);
-    if (staged) {
-      launch_w<true>(table, byte_seed, raw, lens, num_words, width, o, sc, st);
-    } else {
-      launch_w<false>(table, byte_seed, raw, lens, num_words, width, o, sc, st);
-    }
-  } else {
-    auto* o = static_cast<int32_t*>(out);
-    if (staged) {
-      launch_w<true>(table, byte_seed, raw, lens, num_words, width, o, sc, st);
-    } else {
-      launch_w<false>(table, byte_seed, raw, lens, num_words, width, o, sc, st);
-    }
+    return launch_typed(table, byte_seed, raw, lens, num_words, width,
+                        static_cast<int16_t*>(out), scan, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch_typed(table, byte_seed, raw, lens, num_words, width,
+                      static_cast<int32_t*>(out), scan, stream);
 }
 
 }  // namespace
@@ -205,12 +194,12 @@ extern "C" int ht_fused_merge(const int32_t* pslots, int64_t cap_mask,
                               const int32_t* byte_seed, const uint8_t* raw,
                               const int32_t* lens, int64_t num_words,
                               int32_t width, int32_t u16_out, void* out,
-                              int64_t* scan, int32_t staged, void* stream) {
+                              int64_t* scan, void* stream) {
   const ht::PairTable table{reinterpret_cast<const int4*>(pslots),
                             static_cast<unsigned>(cap_mask), probe_len,
                             multi != 0};
   return launch(table, byte_seed, raw, lens, num_words, width, u16_out, out,
-                scan, staged, stream);
+                scan, stream);
 }
 
 // slots: int32 [C, 4] (left, right, rank, merged), 16-byte aligned
@@ -220,10 +209,10 @@ extern "C" int ht_fused_merge_wide(const int32_t* slots, int64_t cap_mask,
                                    const int32_t* byte_seed, const uint8_t* raw,
                                    const int32_t* lens, int64_t num_words,
                                    int32_t width, int32_t u16_out, void* out,
-                                   int64_t* scan, int32_t staged, void* stream) {
+                                   int64_t* scan, void* stream) {
   const ht::WidePairTable table{reinterpret_cast<const int4*>(slots),
                                 static_cast<unsigned>(cap_mask), probe_len,
                                 minsuper != nullptr, minsuper, minsuper_len};
   return launch(table, byte_seed, raw, lens, num_words, width, u16_out, out,
-                scan, staged, stream);
+                scan, stream);
 }

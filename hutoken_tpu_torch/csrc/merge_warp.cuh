@@ -8,9 +8,10 @@
 // __reduce_min_sync over the tile finds the word's leftmost
 // minimum-rank pair as the minimum of rank * 32 + position, __shfl_sync
 // hands each lane its neighbours' rank and minsuper bound, and the
-// survivors are compacted every round, so no alive list is kept.  The
-// loop ends, tile-uniformly, once the word merges nothing.  The result
-// is byte-exact with the sequential greedy order
+// survivors are compacted every round through the warp's 32 ints of
+// shared memory, so no alive list is kept.  The loop ends,
+// tile-uniformly, once the word merges nothing.  The result is
+// byte-exact with the sequential greedy order
 // (hutoken_tpu/oracle.py::encode_word).
 //
 // Tiles of one warp leave the loop in different rounds, so every
@@ -28,9 +29,12 @@
 // times the number of rounds.  The tables stay in the 50 MB L2 (8 MB of
 // interleaved slots for a 29,509-rule vocab, 4-8 MB of wide slots for a
 // 100,256-id one).  The design answers with one load per probe step
-// (the narrow table's key, value and minsuper bound share a slot),
-// sub-warp tiles (a word of 8 bytes keeps 8 lanes busy, not 8 of 32) and
-// a compaction in registers.
+// (the narrow table's key, value and minsuper bound share a slot) and
+// sub-warp tiles (a word of 8 bytes keeps 8 lanes busy, not 8 of 32).
+// A compaction in registers (lane d pulling the (d+1)-th set bit of the
+// keep mask, found by __fns, with __shfl_sync) was timed against the
+// shared-memory one on the H100 and ran 3-8 % slower, so the loop
+// stages its survivors.
 
 #pragma once
 
@@ -142,14 +146,10 @@ struct Tile {
 // 0..n'-1 then hold the surviving ids in order, the other lanes -1.
 // With kCarry, each lane's `tag` travels with its id through every
 // compaction (the segmented merge carries the byte offset of each
-// token's first byte).
-//
-// kStaged picks the compaction: false moves each survivor in registers
-// (lane d pulls from the (d+1)-th set bit of the keep mask, found by
-// __fns); true goes through `stage`, 32 ints of shared memory per warp
-// (64 with kCarry), with two __syncwarp(tile mask) a round.  Both are
-// built so that one run can time them against each other.
-template <int G, bool kCarry, bool kStaged, class Table>
+// token's first byte).  `stage` is the warp's 32 ints of shared memory
+// (64 with kCarry); the tile uses its own lanes' entries, with two
+// __syncwarp(tile mask) a round.
+template <int G, bool kCarry, class Table>
 __device__ __forceinline__ int merge_word(const Table& t, const Tile<G>& tile,
                                           int n, int& id, int& tag,
                                           int32_t* stage) {
@@ -196,26 +196,15 @@ __device__ __forceinline__ int merge_word(const Table& t, const Tile<G>& tile,
     if (applied) id = merged;
     const unsigned keep_bits = tile.ballot(keep);
     n = __popc(keep_bits);
-    if constexpr (kStaged) {
-      if (keep) {
-        const int dst = tile.base + __popc(keep_bits & ((1u << lane) - 1u));
-        stage[dst] = id;
-        if constexpr (kCarry) stage[32 + dst] = tag;
-      }
-      __syncwarp(m);
-      id = lane < n ? stage[tile.base + lane] : -1;
-      if constexpr (kCarry) tag = lane < n ? stage[32 + tile.base + lane] : -1;
-      __syncwarp(m);
-    } else {
-      // 0xffffffff past the n-th survivor: any lane, the value is dropped
-      const int src = static_cast<int>(__fns(keep_bits, 0, lane + 1) & (G - 1));
-      const int moved = __shfl_sync(m, id, src, G);
-      id = lane < n ? moved : -1;
-      if constexpr (kCarry) {
-        const int moved_tag = __shfl_sync(m, tag, src, G);
-        tag = lane < n ? moved_tag : -1;
-      }
+    if (keep) {
+      const int dst = tile.base + __popc(keep_bits & ((1u << lane) - 1u));
+      stage[dst] = id;
+      if constexpr (kCarry) stage[32 + dst] = tag;
     }
+    __syncwarp(m);
+    id = lane < n ? stage[tile.base + lane] : -1;
+    if constexpr (kCarry) tag = lane < n ? stage[32 + tile.base + lane] : -1;
+    __syncwarp(m);
   }
   return n;
 }

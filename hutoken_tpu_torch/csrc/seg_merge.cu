@@ -19,10 +19,12 @@
 // away from gathers.  Here the word list comes straight from the start
 // mask, and words of every length share it: a raw chunk averages under
 // 5 bytes a word.  Each warp takes a run of 32 consecutive words, one per
-// lane, and ballots which of them fit 8 lanes.  It merges those four at a
-// time, one per 8-lane tile, then the longer ones (9-32 bytes) one at a
-// time across the whole warp.  Lane i of a tile loads byte word_start +
-// i, maps it through the byte LUT and runs merge_warp.cuh's merge_word,
+// lane, and ballots which of them fit 8 lanes, which 16 and which need
+// 32.  Its four 8-lane tiles merge the first class, tile k taking the
+// class's k-th, (k+4)-th, ... word, each tile at its own pace; then two
+// 16-lane tiles the second, then the whole warp the rest (17-32 bytes)
+// one at a time.  Lane i of a tile loads byte word_start + i, maps it
+// through the byte LUT and runs merge_warp.cuh's merge_word,
 // carrying its byte offset through every compaction so that each
 // survivor is written in place.  The argmin key is rank * 32 + compacted
 // position where _kernel_seg keys on the original in-word position; both
@@ -32,8 +34,8 @@
 // chunk and the word lists read once, the int32 ids written once).  The
 // bound in practice is the latency of the dependent L2 probe loads per
 // round times the number of rounds, with many resident tiles to hide it;
-// 8-lane tiles keep the lanes of short words busy, where one warp per
-// word left about 27 of 32 lanes idle.
+// tiles of the word's size keep the lanes of short words busy, where one
+// warp per word left about 27 of 32 lanes idle.
 
 #include <cstdint>
 
@@ -44,11 +46,10 @@
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
-constexpr int kSmall = 8;  // words of up to 8 bytes take an 8-lane tile
 
 // Merge one word held by `tile` (its start and length tile-uniform) and
 // write its survivors in place.
-template <int G, bool kStaged>
+template <int G>
 __device__ __forceinline__ void merge_one(const ht::PairTable& table,
                                           const ht::Tile<G>& tile,
                                           const int32_t* __restrict__ byte_seed,
@@ -58,57 +59,53 @@ __device__ __forceinline__ void merge_one(const ht::PairTable& table,
                                           int32_t* stage) {
   int id = tile.lane < len ? __ldg(byte_seed + chunk[start + tile.lane]) : -1;
   int off = tile.lane;  // byte offset of this token's first byte in the word
-  const int n = ht::merge_word<G, true, kStaged>(table, tile, len, id, off, stage);
+  const int n = ht::merge_word<G, true>(table, tile, len, id, off, stage);
   if (tile.lane < n) out[start + off] = id;
 }
 
-template <bool kStaged>
+// Merge the words of `run` whose bits are set in `words` (each of at
+// most G bytes) on the warp's 32 / G tiles of G lanes, round-robin.
+template <int G>
+__device__ __forceinline__ void merge_class(const ht::PairTable& table,
+                                            const int32_t* __restrict__ byte_seed,
+                                            const uint8_t* __restrict__ chunk,
+                                            const int32_t* __restrict__ word_start,
+                                            const int32_t* __restrict__ word_len,
+                                            int64_t run, unsigned words,
+                                            int32_t* __restrict__ out,
+                                            int32_t* stage) {
+  const ht::Tile<G> tile(threadIdx.x & 31);
+  const int n = __popc(words);
+  for (int i = (threadIdx.x & 31) / G; i < n; i += 32 / G) {  // tile-uniform
+    const int64_t w = run + __fns(words, 0, i + 1);
+    merge_one<G>(table, tile, byte_seed, chunk, word_start[w],
+                 min(word_len[w], G), out, stage);
+  }
+  __syncwarp();
+}
+
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 seg_merge_kernel(ht::PairTable table, const int32_t* __restrict__ byte_seed,
                  const uint8_t* __restrict__ chunk,
                  const int32_t* __restrict__ word_start,
                  const int32_t* __restrict__ word_len, int64_t num_words,
                  int32_t* __restrict__ out) {
-  __shared__ int32_t stage[kStaged ? kWarpsPerBlock : 1][64];
+  __shared__ int32_t stage[kWarpsPerBlock][64];
   const int wl = threadIdx.x & 31;
-  int32_t* my_stage = stage[kStaged ? threadIdx.x >> 5 : 0];
+  int32_t* my_stage = stage[threadIdx.x >> 5];
   const int64_t run = (static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock +
                        (threadIdx.x >> 5)) * 32;
   if (run >= num_words) return;  // the whole warp leaves together
 
-  // lane i describes word run + i
+  // lane i describes word run + i; length 0 is a skip
   const int64_t wi = run + wl;
-  const int my_len = wi < num_words ? min(max(word_len[wi], 0), 32) : 0;
-  const int my_start = wi < num_words ? word_start[wi] : 0;
-  unsigned small = __ballot_sync(ht::kFullMask, my_len >= 1 && my_len <= kSmall);
-  unsigned large = __ballot_sync(ht::kFullMask, my_len > kSmall);
-
-  // the short words, four at a time: tile k takes the k-th remaining one
-  const ht::Tile<kSmall> tile8(wl);
-  const int k = wl / kSmall;
-  while (small) {  // warp-uniform
-    const unsigned pick = __fns(small, 0, k + 1);  // 0xffffffff: no word
-    const int src = static_cast<int>(pick & 31u);
-    const int len = __shfl_sync(ht::kFullMask, my_len, src);
-    const int start = __shfl_sync(ht::kFullMask, my_start, src);
-    if (pick != 0xffffffffu) {  // tile-uniform
-      merge_one<kSmall, kStaged>(table, tile8, byte_seed, chunk, start, len,
-                                 out, my_stage);
-    }
-    __syncwarp();
-    for (int i = 0; i < 32 / kSmall && small; ++i) small &= small - 1;
-  }
-
-  // the longer words, one at a time across the warp
-  const ht::Tile<32> tile32(wl);
-  while (large) {  // warp-uniform
-    const int src = __ffs(large) - 1;
-    const int len = __shfl_sync(ht::kFullMask, my_len, src);
-    const int start = __shfl_sync(ht::kFullMask, my_start, src);
-    merge_one<32, kStaged>(table, tile32, byte_seed, chunk, start, len, out,
-                           my_stage);
-    large &= large - 1;
-  }
+  const int len = wi < num_words ? min(max(word_len[wi], 0), 32) : 0;
+  const unsigned to8 = __ballot_sync(ht::kFullMask, len >= 1 && len <= 8);
+  const unsigned to16 = __ballot_sync(ht::kFullMask, len > 8 && len <= 16);
+  const unsigned to32 = __ballot_sync(ht::kFullMask, len > 16);
+  merge_class<8>(table, byte_seed, chunk, word_start, word_len, run, to8, out, my_stage);
+  merge_class<16>(table, byte_seed, chunk, word_start, word_len, run, to16, out, my_stage);
+  merge_class<32>(table, byte_seed, chunk, word_start, word_len, run, to32, out, my_stage);
 }
 
 }  // namespace
@@ -118,22 +115,14 @@ extern "C" int ht_seg_merge(const int32_t* pslots, int64_t cap_mask,
                             int32_t probe_len, int32_t multi,
                             const int32_t* byte_seed, const uint8_t* chunk,
                             const int32_t* word_start, const int32_t* word_len,
-                            int64_t num_words, int32_t* out, int32_t staged,
-                            void* stream) {
+                            int64_t num_words, int32_t* out, void* stream) {
   const ht::PairTable table{reinterpret_cast<const int4*>(pslots),
                             static_cast<unsigned>(cap_mask), probe_len,
                             multi != 0};
   const int64_t warps = (num_words + 31) / 32;
   const int64_t blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  auto st = static_cast<cudaStream_t>(stream);
-  if (staged) {
-    seg_merge_kernel<true><<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32,
-                             0, st>>>(table, byte_seed, chunk, word_start,
-                                      word_len, num_words, out);
-  } else {
-    seg_merge_kernel<false><<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32,
-                              0, st>>>(table, byte_seed, chunk, word_start,
-                                       word_len, num_words, out);
-  }
+  seg_merge_kernel<<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      table, byte_seed, chunk, word_start, word_len, num_words, out);
   return static_cast<int>(cudaGetLastError());
 }

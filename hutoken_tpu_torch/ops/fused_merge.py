@@ -46,7 +46,7 @@ def _library() -> ctypes.CDLL:
     i32 = ctypes.c_int32
     rest = [
         p, p, p, ctypes.c_int64, i32,  # byte_seed, raw, lens, num_words, width
-        i32, p, p, i32, p,  # u16_out, out, scan, staged, stream
+        i32, p, p, p,  # u16_out, out, scan, stream
     ]
     lib.ht_fused_merge.restype = ctypes.c_int
     lib.ht_fused_merge.argtypes = [
@@ -80,7 +80,7 @@ def _check_inputs(tab, raw: torch.Tensor, lens: torch.Tensor) -> None:
 
 
 def merge_words_from_bytes_fused(
-    tab, raw: torch.Tensor, lens: torch.Tensor, u16_out: bool, *, staged: bool = False
+    tab, raw: torch.Tensor, lens: torch.Tensor, u16_out: bool
 ) -> torch.Tensor:
     """Byte-mode merge of W words of at most 32 bytes, in the packed
     layout (the counterpart of ``merge_words_from_bytes_pallas``).
@@ -95,9 +95,7 @@ def merge_words_from_bytes_fused(
     A CUDA tensor launches the kernel on the current stream without
     synchronising and adds one to ``merge_words_from_bytes_fused.
     launches``, or, on a wide table, launches the wide variant and adds
-    one to ``.wide_launches``; a CPU tensor runs the twin.  ``staged``
-    picks the kernel's shared-memory compaction in place of the one in
-    registers, for timing the two against each other.
+    one to ``.wide_launches``; a CPU tensor runs the twin.
     """
     _check_inputs(tab, raw, lens)
     if raw.device.type == "cpu":
@@ -120,7 +118,7 @@ def merge_words_from_bytes_fused(
         stream = torch.cuda.current_stream(raw.device).cuda_stream
         rest = (
             tab.byte_seed.data_ptr(), raw.data_ptr(), lens.data_ptr(), W, L,
-            int(u16_out), out.data_ptr(), scan.data_ptr(), int(staged), stream,
+            int(u16_out), out.data_ptr(), scan.data_ptr(), stream,
         )
         if tab.wide:
             rc = lib.ht_fused_merge_wide(

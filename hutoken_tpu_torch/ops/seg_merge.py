@@ -33,7 +33,7 @@ def _library() -> ctypes.CDLL:
     lib.ht_seg_merge.argtypes = [
         p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,  # pslots, cap_mask, probe_len, multi
         p, p, p, p, ctypes.c_int64,  # byte_seed, chunk, word_start, word_len, num_words
-        p, ctypes.c_int32, p,  # out, staged, stream
+        p, p,  # out, stream
     ]
     return lib
 
@@ -57,7 +57,7 @@ def _check_inputs(tab, chunk, word_start, word_len) -> None:
 
 
 def seg_merge(tab, chunk: torch.Tensor, word_start: torch.Tensor,
-              word_len: torch.Tensor, *, staged: bool = False) -> torch.Tensor:
+              word_len: torch.Tensor) -> torch.Tensor:
     """Greedy merge of W words of a chunk, in place.
 
     ``chunk`` uint8 [N]; word w is ``chunk[word_start[w] :
@@ -68,9 +68,7 @@ def seg_merge(tab, chunk: torch.Tensor, word_start: torch.Tensor,
 
     A CUDA tensor launches the kernel on the current stream without
     synchronising (and adds one to ``seg_merge.launches``); a CPU tensor
-    runs :func:`seg_merge_plain`.  ``staged`` picks the kernel's
-    shared-memory compaction in place of the one in registers, for
-    timing the two against each other.
+    runs :func:`seg_merge_plain`.
     """
     _check_inputs(tab, chunk, word_start, word_len)
     if chunk.device.type == "cpu":
@@ -89,7 +87,7 @@ def seg_merge(tab, chunk: torch.Tensor, word_start: torch.Tensor,
         rc = _library().ht_seg_merge(
             tab.pslots.data_ptr(), tab.cap_mask, tab.probe_len, int(tab.minsuper is not None),
             tab.byte_seed.data_ptr(), chunk.data_ptr(), word_start.data_ptr(),
-            word_len.data_ptr(), W, out.data_ptr(), int(staged), stream,
+            word_len.data_ptr(), W, out.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"seg_merge kernel launch failed: CUDA error {rc}")

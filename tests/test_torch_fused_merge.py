@@ -136,9 +136,9 @@ def test_fused_merge_checks_inputs():
 @pytest.mark.parametrize("name", tp.BYTE_CONFIGS)
 def test_kernel_matches_twin_on_cuda(name):
     """The packed kernel against ``compact_output`` of the twin on the
-    prefix the host reads, at widths 8, 16 and 32, both compactions:
-    rows of length 0 and 1 mixed with long rows, and blocks of 12,345
-    words, so that hundreds of blocks look back across each other."""
+    prefix the host reads, at widths 8, 16 and 32: rows of length 0 and
+    1 mixed with long rows, and blocks of 12,345 words, so that hundreds
+    of blocks look back across each other."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     ctx, enc = tp.load(name)
@@ -154,9 +154,8 @@ def test_kernel_matches_twin_on_cuda(name):
         r, n = torch.from_numpy(raw).cuda(), torch.from_numpy(lens).cuda()
         want = compact_output(FM.fused_merge_plain(tab, r, n)[0], True)
         read = 12345 + int(want[:12345].to(torch.int64).sum())
-        for staged in (False, True):
-            launches = FM.merge_words_from_bytes_fused.launches
-            got = FM.merge_words_from_bytes_fused(tab, r, n, True, staged=staged)
-            torch.cuda.synchronize()
-            assert FM.merge_words_from_bytes_fused.launches == launches + 1
-            assert torch.equal(got[:read], want[:read])
+        launches = FM.merge_words_from_bytes_fused.launches
+        got = FM.merge_words_from_bytes_fused(tab, r, n, True)
+        torch.cuda.synchronize()
+        assert FM.merge_words_from_bytes_fused.launches == launches + 1
+        assert torch.equal(got[:read], want[:read])
