@@ -4,9 +4,9 @@
     python3 chip_smoke.py        # from the repository root; needs one CUDA device
 
 It imports nothing of JAX and nothing of the JAX package ``hutoken_tpu``
-(it keeps its own copies of the benchmark corpora and of the generated
-wide vocabulary, and reads the committed fixture files), and checks at
-its end that neither was loaded.  Phases, each failing the run on its
+(the benchmark corpora and the generated wide vocabulary come from the
+port's ``hutoken_tpu_torch/corpora.py``; the other fixtures are the
+committed files), and checks at its end that neither was loaded.  Phases, each failing the run on its
 own:
 
 1. device: the card's name and power limit, torch and CUDA versions,
@@ -47,7 +47,7 @@ own:
    and decode MB/s prints beside the native host decode's; the engine's
    ``decode_arrays_device`` must return a CUDA blob equal byte for byte
    to the native ``decode_arrays``;
-6w. a generated 100,256-id vocabulary (:func:`write_wide_fixture`,
+6w. a generated 100,256-id vocabulary (``corpora.write_wide_fixture``,
    string and merges paths, written to a temporary directory): the wide
    fused kernel against its twin as in phase 3, on Zipf corpus words
    (which must give ids of 0x10000 or more); then one facade
@@ -69,8 +69,6 @@ from __future__ import annotations
 import contextlib
 import json
 import os
-import random
-import string
 import sys
 import tempfile
 import time
@@ -80,6 +78,8 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
+
+from hutoken_tpu_torch.corpora import build_corpus, build_unique_corpus, write_wide_fixture  # noqa: E402
 
 ZIPF_MB = 24
 UNIQUE_MB = 8
@@ -92,177 +92,8 @@ LENGTH_RUNS = 2000  # 32-word runs in the every-length chunk
 HIGH_BYTES = bytes(range(0x20, 0x7F)) + bytes(range(0x80, 0x100))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 FIXTURES = os.path.join(HERE, "tests", "fixtures")
-WIDE_VOCAB_SIZE = 100256  # cl100k_base's id count
 
 # ------------------------------------------------------------- inputs
-# Copies of tests/fixture_tools.py's base text and corpus and of
-# bench.py's two corpus builders, which load the JAX package;
-# tests/test_torch_host.py holds each equal to its original.
-
-BASE_TEXT = (
-    "A gyors barna róka átugrik a lusta kutya fölött. "
-    "Az őszi szél végigsöpört a Duna-parton, és a fák levelei "
-    "aranyszínűre váltak. Öt szűk ütközőpont maradt a hídon. "
-    "The quick brown fox jumps over the lazy dog. "
-    "Programming languages map bytes to tokens with byte pair encoding. "
-    "Számítógépes nyelvészet: a tokenizálás a szöveg feldolgozásának "
-    "első lépése. Különböző írásrendszerek — például a kínai 中文 vagy "
-    "az emoji 🙂 — bájtsorozatokként jelennek meg. "
-    "Egy, kettő, három, négy, öt, hat, hét, nyolc, kilenc, tíz. "
-    "1234567890 42 2026 3.14159 0xFF. "
-    "   multiple   spaces\tand\nnewlines\r\nare whitespace too. "
-    "Árvíztűrő tükörfúrógép. ÁRVÍZTŰRŐ TÜKÖRFÚRÓGÉP. "
-)
-
-
-def make_corpus() -> str:
-    """Seeded word-shuffled expansions of the base text."""
-    rng = random.Random(42)
-    words = BASE_TEXT.split(" ")
-    parts = [BASE_TEXT]
-    for _ in range(12):
-        sample = [rng.choice(words) for _ in range(len(words))]
-        parts.append(" ".join(sample))
-    return " ".join(parts)
-
-
-CORPUS = make_corpus()
-
-
-def build_corpus(target_mb: float, seed: int = 0) -> list[str]:
-    """The Zipf-like corpus: frequent base words mixed with rare forms."""
-    rng = random.Random(seed)
-    base_words = CORPUS.split()
-    forms = set(base_words)
-    for w in list(base_words):
-        for _ in range(30):
-            forms.add(w + rng.choice(string.ascii_lowercase))
-            forms.add(
-                w
-                + rng.choice(string.ascii_lowercase)
-                + rng.choice(string.ascii_lowercase)
-            )
-    forms = sorted(forms)  # set order varies per process (hash seed)
-    nrng = np.random.default_rng(seed)
-    base_arr = np.array(base_words)
-    forms_arr = np.array(forms)
-    docs: list[str] = []
-    total = 0
-    target = int(target_mb * 1e6)
-    est_doc = 256 * 7
-    while total < target:
-        n_docs = max((target - total) // est_doc, 1)
-        picks = nrng.random((n_docs, 256)) < 0.7
-        wb = base_arr[nrng.integers(0, len(base_arr), (n_docs, 256))]
-        wf = forms_arr[nrng.integers(0, len(forms_arr), (n_docs, 256))]
-        words = np.where(picks, wb, wf)
-        for row in words:
-            doc = " ".join(row.tolist())
-            docs.append(doc)
-            total += len(doc.encode())
-            if total >= target:
-                break
-    return docs
-
-
-def build_unique_corpus(target_mb: float, seed: int = 1) -> list[str]:
-    """The high-entropy corpus: random identifiers, numbers, URL-ish
-    fragments and long-tail inflections, nearly every word first-seen."""
-    nrng = np.random.default_rng(seed)
-    hu_suffix = (
-        "aink eink aitok eitek aik eik unk ünk tok tek nak nek ban ben "
-        "ból ből hoz hez val vel".split()
-    )
-    docs: list[str] = []
-    total = 0
-    target = int(target_mb * 1e6)
-    while total < target:
-        n_words = 256 * 64
-        kinds = nrng.integers(0, 4, n_words)
-        lens = nrng.integers(3, 13, n_words)
-        body_len = np.where(
-            kinds == 1, np.maximum(lens - 4, 2),
-            np.where(kinds == 2, np.maximum(lens - 4, 3),
-                     np.where(kinds == 3, np.maximum(lens - 3, 2), lens)),
-        )
-        maxl = int(body_len.max())
-        chars = np.where(
-            (kinds == 1)[:, None],
-            nrng.integers(ord("0"), ord("9") + 1, (n_words, maxl)),
-            nrng.integers(ord("a"), ord("z") + 1, (n_words, maxl)),
-        ).astype(np.uint8)
-        bodies = [
-            row[:bl].tobytes().decode()
-            for row, bl in zip(chars, body_len)
-        ]
-        sfx = nrng.integers(0, len(hu_suffix), n_words)
-        words = [
-            b if k == 0 or k == 1 else (b + ".io/" if k == 2 else b + hu_suffix[s])
-            for b, k, s in zip(bodies, kinds, sfx)
-        ]
-        for lo in range(0, n_words, 256):
-            doc = " ".join(words[lo : lo + 256])
-            docs.append(doc)
-            total += len(doc.encode())
-            if total >= target:
-                break
-    return docs
-
-
-def _wide_tokens() -> dict[bytes, int]:
-    """Raw token bytes -> id: the 256 byte seeds, then breadth-first
-    prefix chains (with and without the leading space) over about 60,000
-    word forms, the base words plus 2-4 random lowercase letters.  Every
-    multi-byte token splits into in-vocab halves, as in a trained BPE
-    vocabulary; ids follow creation order."""
-    rng = random.Random(11)
-    base_words = sorted(set(BASE_TEXT.split()))
-    forms = list(base_words)
-    while len(forms) < 60000:
-        tail = "".join(rng.choice(string.ascii_lowercase) for _ in range(rng.randint(2, 4)))
-        forms.append(rng.choice(base_words) + tail)
-    tokens = {bytes([i]): i for i in range(256)}
-    for ln in range(2, 32):
-        for w in forms:
-            wb = (" " + w).encode("utf-8")
-            for cand in (wb[:ln], wb[1 : 1 + ln]):
-                if len(cand) == ln and cand not in tokens:
-                    tokens[cand] = len(tokens)
-                    if len(tokens) == WIDE_VOCAB_SIZE:
-                        return tokens
-    raise ValueError(f"the word forms give only {len(tokens)} tokens")
-
-
-def write_wide_fixture(directory: str) -> tuple[str, str, str]:
-    """Write a byte-level vocabulary of ``WIDE_VOCAB_SIZE`` ids (token
-    ids and pair ranks past 16 bits), spelled as GPT-2 spells it, its
-    special-chars file and a merges.txt (rule ``(t[:-1], t[-1])`` for
-    every token whose parent is in the vocab, in id order) into
-    ``directory``; returns the three paths.  Deterministic."""
-    from hutoken_tpu_torch.bytemaps import gpt2_bytes_to_unicode, gpt2_special_chars_table
-    from hutoken_tpu_torch.formats import write_special_chars_file
-
-    os.makedirs(directory, exist_ok=True)
-    vocab_path = os.path.join(directory, "wide-vocab.txt")
-    special_path = os.path.join(directory, "wide-vocab_special_chars.txt")
-    merges_path = os.path.join(directory, "wide-merges.txt")
-    b2u = gpt2_bytes_to_unicode()
-    spelled = [
-        "".join(b2u[b] for b in tok)
-        for tok, _idx in sorted(_wide_tokens().items(), key=lambda kv: kv[1])
-    ]
-    with open(vocab_path, "w", encoding="utf-8") as f:
-        for idx, sp in enumerate(spelled):
-            hex_token = "".join(f"0x{b:02X}" for b in sp.encode("utf-8"))
-            f.write(f"{hex_token} == {idx}\n")
-    write_special_chars_file(special_path, gpt2_special_chars_table())
-    known = set(spelled)
-    with open(merges_path, "w", encoding="utf-8") as f:
-        f.write("#version: fixture-wide\n")
-        for idx, sp in enumerate(spelled):
-            if idx >= 256 and len(sp) >= 2 and sp[:-1] in known:
-                f.write(f"{sp[:-1]} {sp[-1]}\n")
-    return vocab_path, special_path, merges_path
 
 
 def check(cond: bool, what: str) -> None:
@@ -383,14 +214,19 @@ def probe_log():
 
 
 def probed_slot_bytes(tab, pairs) -> int:
-    """Bytes of the distinct pair-table slots that the kernel's probe
-    loop reads for these pairs: from the hash slot up to the hit or the
-    first empty slot, 16 bytes each."""
+    """Pair-table bytes that the merge must read for these pairs, counted
+    over the distinct slots the probe visits (from the hash slot up to
+    the hit or the first empty slot).  Narrow table: a 4-byte key per
+    visited slot, a 4-byte value per hit slot and, with a minsuper bound,
+    4 bytes per distinct hit rank; the kernel's 16-byte interleaved slot
+    is its own choice, not the function's need.  Wide table: a whole
+    16-byte slot per visited slot, since its key is both 32-bit ids."""
     import torch
 
     from hutoken_tpu_torch.ops.merge import hash_slots, pack_key
 
     touched = torch.zeros(tab.cap_mask + 1, dtype=torch.bool, device=tab.device)
+    hits = torch.zeros_like(touched)
     for a, b in pairs:
         real = (a >= 0) & (b >= 0)
         a, b = a[real], b[real]
@@ -404,10 +240,17 @@ def probed_slot_bytes(tab, pairs) -> int:
                 s = tab.slots[slot]
                 hit, empty = (s[:, 0] == a) & (s[:, 1] == b), s[:, 0] == -1
             else:
-                k = tab.pkey[slot]
+                k = tab.pslots[slot, 0]
                 hit, empty = k == key, k == -1
+            hits[slot[alive & hit]] = True
             alive &= ~(hit | empty)
-    return 16 * int(touched.sum())
+    if tab.wide:
+        return 16 * int(touched.sum())
+    nbytes = 4 * int(touched.sum()) + 4 * int(hits.sum())
+    if tab.minsuper is not None:
+        ranks = (tab.pslots[hits, 1] >> 16) & 0xFFFF
+        nbytes += 4 * int(torch.unique(ranks).numel())
+    return nbytes
 
 
 def bound_entry(nbytes: int) -> dict:
@@ -626,6 +469,41 @@ def seg_vs_plain(device: str, docs: list[str], words: list[str], label: str) -> 
               f"kernel {k1:.4f} / {k2:.4f} ms; twin {p1:.3f} ms; bound "
               f"{row['bound_ms']:.5f} ms ({nbytes} B), share {row['bound_ms'] / row['ms']:.3f}")
     return result
+
+
+def seg_classes_ab(rounds: int = 4) -> None:
+    """The segmented kernel with its 16-lane class for 9-16-byte words
+    and without it (those words then run on the whole warp), timed in
+    turns on one raw-path chunk of the unique corpus for each committed
+    table, each held equal to the plain twin first.
+
+        python3 -c 'import chip_smoke; chip_smoke.seg_classes_ab()'
+    """
+    from hutoken_tpu_torch.ops import seg_merge as SM
+    from hutoken_tpu_torch.profile_gather import card_label
+    from hutoken_tpu_torch.tables import device_tables
+
+    label = card_label()
+    print(label)
+    variants = {"8/16/32": (), "8/32": ("-DHT_SEG_TILE16=0",)}
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(SM.build, variants.values()))
+    args_chunk = raw_chunk(build_unique_corpus(UNIQUE_MB))
+    for name in ("small", "big-vocab", "big-merges"):
+        ctx, enc = load_config(fixture_paths(name))
+        tab = device_tables(enc, ctx, "cuda")
+        args = seg_inputs("cuda", *args_chunk)
+        want = SM.seg_merge_plain(tab, *args)
+        times = {v: [] for v in variants}
+        for v, d in variants.items():
+            check(bool((SM.seg_merge(tab, *args, defines=d) == want).all()), f"seg {v} == twin ({name})")
+        for _ in range(rounds):
+            for v, d in variants.items():
+                times[v].append(kernel_ms(lambda: SM.seg_merge(tab, *args, defines=d)))
+        print(f"[{label}] seg classes {name:10s} raw chunk {args[0].shape[0]} B, "
+              f"{args[1].shape[0]} words, in turns: "
+              + "; ".join(f"{v} " + " / ".join(f"{t:.4f}" for t in ts)
+                          + f" ms (min {min(ts):.4f}, max {max(ts):.4f})" for v, ts in times.items()))
 
 
 # ------------------------------------------------------- phases 4 to 7

@@ -212,7 +212,7 @@ extern "C" int ht_fused_merge_wide(const int32_t* slots, int64_t cap_mask,
                                    int64_t* scan, void* stream) {
   const ht::WidePairTable table{reinterpret_cast<const int4*>(slots),
                                 static_cast<unsigned>(cap_mask), probe_len,
-                                minsuper != nullptr, minsuper, minsuper_len};
+                                minsuper, minsuper_len};
   return launch(table, byte_seed, raw, lens, num_words, width, u16_out, out,
                 scan, stream);
 }

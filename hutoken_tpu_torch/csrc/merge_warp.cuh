@@ -62,10 +62,12 @@ struct PairTable {
   const int4* slots;
   unsigned cap_mask;
   int probe_len;
-  bool multi;  // false: one merge per word per round
+  bool has_minsuper;  // false: one merge per word per round
 
   // rank sentinel: real ranks fit 16 bits (checked when the table is built)
   static constexpr int kInfRank = 0x10000;
+
+  __device__ __forceinline__ bool multi() const { return has_minsuper; }
 
   __device__ __forceinline__ void lookup(unsigned a, unsigned b, int& rank,
                                          int& merged, int& msup) const {
@@ -93,14 +95,15 @@ struct WidePairTable {
   const int4* slots;
   unsigned cap_mask;
   int probe_len;
-  bool multi;
-  const int32_t* minsuper;
+  const int32_t* minsuper;  // nullptr: one merge per word per round
   int minsuper_len;
 
   // ranks stop at 2^26 - 1 (checked when the table is built), so the
   // candidate rank * 32 + position (position <= 30) stays below kInfKey;
   // 0x10000 is a real rank here
   static constexpr int kInfRank = 0x7fffffff;
+
+  __device__ __forceinline__ bool multi() const { return minsuper != nullptr; }
 
   __device__ __forceinline__ void lookup(unsigned a, unsigned b, int& rank,
                                          int& merged, int& msup) const {
@@ -112,7 +115,9 @@ struct WidePairTable {
       if (s.x == ia && s.y == ib) {
         rank = s.z;
         merged = s.w;
-        if (multi && rank < minsuper_len) msup = __ldg(minsuper + rank);
+        if (minsuper != nullptr && rank < minsuper_len) {
+          msup = __ldg(minsuper + rank);
+        }
         return;
       }
       if (s.x == -1) return;
@@ -174,7 +179,7 @@ __device__ __forceinline__ int merge_word(const Table& t, const Tile<G>& tile,
     if (best == kInfKey) break;  // tile-uniform: the word is done
     bool applied = lane == static_cast<int>(best & 31u);
 
-    if (t.multi) {
+    if (t.multi()) {
       // certified local minima (pallas_merge.py module docstring): each
       // neighbour pair must be absent, or finite, of higher rank, and
       // with minsuper above this rank; an INF neighbour blocks the pair

@@ -59,8 +59,9 @@ def probe_pairs_packed(tab, a: torch.Tensor, b: torch.Tensor):
     """(rank, merged) int32 for id pairs; (INF_RANK, -1) when the pair
     has no rule or either side is PAD (-1).  Port of
     ``_probe_pairs_packed`` (merge.py:74): one key gather per probe step,
-    one value gather at the hit slot."""
-    if tab.pkey is None:
+    one value gather at the hit slot, from the key and value columns of
+    ``tab.pslots``."""
+    if tab.pslots is None:
         raise ValueError(
             "a wide pair table has no packed keys (a 16-bit key would alias "
             "(0x10001, 5) with (1, 5)): use probe_pairs_wide"
@@ -71,10 +72,10 @@ def probe_pairs_packed(tab, a: torch.Tensor, b: torch.Tensor):
     slot_hit = torch.zeros(a.shape, dtype=torch.int64, device=a.device)
     for i in range(tab.probe_len):
         slot = (h + i) & tab.cap_mask
-        hit = ~found & (tab.pkey[slot] == key)
+        hit = ~found & (tab.pslots[slot, 0] == key)
         slot_hit = torch.where(hit, slot, slot_hit)
         found |= hit
-    v = tab.pval[slot_hit]
+    v = tab.pslots[slot_hit, 1]
     valid = found & (a >= 0) & (b >= 0)
     rank = torch.where(valid, (v >> 16) & 0xFFFF, INF_RANK)
     merged = torch.where(valid, v & 0xFFFF, -1)

@@ -310,21 +310,18 @@ class DeviceTables:
     bound, as tensors on one device.  Slot = mix hash & ``cap_mask``,
     linear probing up to ``probe_len`` slots, in either layout:
 
-    * narrow (``slots`` None): ``pkey[s]`` = ``left << 16 | right`` as
-      an int32 bit pattern (-1 = empty), ``pval[s]`` = ``rank << 16 |
-      merged`` (``PairTable.packed_arrays``), which the eager probe
-      reads; and ``pslots[s]`` = ``(pkey[s], pval[s], minsuper[rank]
-      or 0, 0)``, the same slots interleaved, which the merge kernels
-      read: one 16-byte load a probe step brings key, value and the
-      multi-merge bound together (0 in empty slots, and everywhere
-      when ``minsuper`` is None);
-    * wide (``pkey``/``pval``/``pslots`` None): ``slots[s]`` =
+    * narrow (``slots`` None): ``pslots[s]`` = ``(key, value,
+      minsuper[rank] or 0, 0)``, where key = ``left << 16 | right`` as
+      an int32 bit pattern (-1 = empty) and value = ``rank << 16 |
+      merged``, the ``PairTable.packed_arrays`` pair: one 16-byte load
+      a probe step brings key, value and the multi-merge bound together
+      (0 in empty slots, and everywhere when ``minsuper`` is None); the
+      eager probe reads the key and value columns;
+    * wide (``pslots`` None): ``slots[s]`` =
       ``(left, right, rank, merged)`` in full 32 bits, ``left`` -1 when
       empty, so one 16-byte load reads a slot's key and value together.
     """
 
-    pkey: Optional[torch.Tensor]  # int32 [C], narrow only
-    pval: Optional[torch.Tensor]  # int32 [C], narrow only
     pslots: Optional[torch.Tensor]  # int32 [C, 4], narrow only
     slots: Optional[torch.Tensor]  # int32 [C, 4], wide only
     probe_len: int
@@ -338,7 +335,7 @@ class DeviceTables:
 
     @property
     def device(self) -> torch.device:
-        return (self.slots if self.wide else self.pkey).device
+        return (self.slots if self.wide else self.pslots).device
 
 
 def build_minsuper(
@@ -394,18 +391,15 @@ def device_tables(
     ms = None
     if enc.byte_seed_ids is not None:
         ms = build_minsuper(enc.pairs, ctx.vocab.id2str)
-    pkey = pval = pslots = slots = None
+    pslots = slots = None
     if pt.packed_ok:
-        pkey_np, pval_np = pt.packed_arrays()
+        pkey, pval = pt.packed_arrays()
         ms_slot = np.zeros(pt.capacity, dtype=np.int32)
         if ms is not None:
             real = pt.left >= 0
             ms_slot[real] = ms[pt.rank[real]]
-        packed = np.stack([pkey_np, pval_np, ms_slot, np.zeros_like(ms_slot)], axis=1)
-        pkey, pval, pslots = (
-            torch.from_numpy(np.ascontiguousarray(x)).to(device)
-            for x in (pkey_np, pval_np, packed)
-        )
+        packed = np.stack([pkey, pval, ms_slot, np.zeros_like(ms_slot)], axis=1)
+        pslots = torch.from_numpy(np.ascontiguousarray(packed)).to(device)
     else:
         max_rank = max(r for r, _m in enc.pairs.values())
         if max_rank > MAX_WIDE_RANK:
@@ -423,8 +417,6 @@ def device_tables(
     if ms is not None:
         minsuper = torch.from_numpy(ms).to(device)
     return DeviceTables(
-        pkey=pkey,
-        pval=pval,
         pslots=pslots,
         slots=slots,
         probe_len=pt.probe_len,

@@ -406,15 +406,18 @@ def test_facade_error_strings_and_trainers(tmp_path, monkeypatch):
 
 
 def test_smoke_inputs_are_copies():
-    """``chip_smoke.py`` keeps its own copies of the fixture text and of
-    ``bench.py``'s corpus builders (which load the JAX package), and
-    reads the committed fixture files that ``fixture_tools`` writes."""
+    """The port's ``corpora`` module, which ``chip_smoke.py`` reads, keeps
+    its own copies of the fixture text and of ``bench.py``'s corpus
+    builders (which load the JAX package); the smoke reads the committed
+    fixture files that ``fixture_tools`` writes."""
     import bench
     import chip_smoke
+    from hutoken_tpu_torch import corpora as C
 
-    assert chip_smoke.BASE_TEXT == ft._BASE_TEXT and chip_smoke.CORPUS == ft.CORPUS
-    assert chip_smoke.build_corpus(0.3) == bench.build_corpus(0.3)
-    assert chip_smoke.build_unique_corpus(0.3) == bench.build_unique_corpus(0.3)
+    assert C.BASE_TEXT == ft._BASE_TEXT and C.CORPUS == ft.CORPUS
+    assert C.build_corpus(0.3) == bench.build_corpus(0.3)
+    assert C.build_unique_corpus(0.3) == bench.build_unique_corpus(0.3)
+    assert chip_smoke.build_corpus is C.build_corpus
     assert chip_smoke.fixture_paths("small") == (*ft.write_byte_level_fixture(), None)
     assert chip_smoke.fixture_paths("big-vocab") == (*ft.write_big_vocab_fixture(), None)
     assert chip_smoke.fixture_paths("big-merges") == (

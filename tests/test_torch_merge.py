@@ -46,8 +46,9 @@ def test_pack_key_matches_packed_arrays_for_high_ids():
     got = TM.pack_key(torch.from_numpy(pt.left[real]), torch.from_numpy(pt.right[real]))
     assert np.array_equal(got.numpy(), pkey[real])
     assert (pkey[real] < 0).any()  # left id >= 0x8000: a negative int32 key
+    slots = np.stack([pkey, pval, np.zeros_like(pkey), np.zeros_like(pkey)], axis=1)
     tab = types.SimpleNamespace(
-        pkey=torch.from_numpy(pkey), pval=torch.from_numpy(pval),
+        pslots=torch.from_numpy(slots),
         probe_len=pt.probe_len, cap_mask=pt.capacity - 1,
     )
     a = torch.tensor([0x9000, 7, 1, 1, -1], dtype=torch.int32)
@@ -151,7 +152,7 @@ def test_device_tables_build_a_wide_table_for_wide_ids():
     enc = _wide_enc({(70000, 1): (0, 70001)})
     assert not enc.pair_table.packed_ok
     tab = device_tables(enc, None, "cpu")
-    assert tab.wide and tab.pkey is None and tuple(tab.slots.shape[1:]) == (4,)
+    assert tab.wide and tab.pslots is None and tuple(tab.slots.shape[1:]) == (4,)
     a = torch.tensor([70000, 70000 & 0xFFFF, 70000, -1], dtype=torch.int32)
     b = torch.tensor([1, 1, 2, 1], dtype=torch.int32)
     rank, merged = TM.probe_pairs(tab, a, b)
@@ -178,7 +179,6 @@ def test_interleaved_slots_equal_the_packed_arrays(name):
     slots = tab.pslots.numpy()
     assert slots.shape == (enc.pair_table.capacity, 4) and slots.dtype == np.int32
     assert np.array_equal(slots[:, 0], pkey) and np.array_equal(slots[:, 1], pval)
-    assert np.array_equal(tab.pkey.numpy(), pkey) and np.array_equal(tab.pval.numpy(), pval)
     real = enc.pair_table.left >= 0
     want_ms = np.zeros(real.shape[0], dtype=np.int32)
     if tab.minsuper is not None:

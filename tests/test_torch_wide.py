@@ -149,7 +149,7 @@ def test_wide_table_layout(name, wide):
     assert jax_engine._substr_arrays is not None
     assert jax_engine._substr_merges == (name == "merges")
     tab = port.dev_tables
-    assert tab.wide and tab.pkey is None and tab.pval is None
+    assert tab.wide and tab.pslots is None
     assert tab.slots.dtype == torch.int32 and tab.slots.shape[1] == 4
     assert tab.slots.numel() * 4 <= 8 << 20
     assert tab.minsuper is None

@@ -1,6 +1,7 @@
 """Shared inputs for the PyTorch port's parity tests: the committed
 fixture configurations, the generated wide (100,256-id) fixture
-(``chip_smoke.write_wide_fixture``, which the smoke run writes too),
+(``hutoken_tpu_torch.corpora.write_wide_fixture``, which the smoke
+run writes too),
 seeded word blocks, and the JAX package's packed-table tuple built from
 the same numpy tables.  Imports no JAX at module level."""
 
@@ -11,9 +12,9 @@ import functools
 import numpy as np
 
 import fixture_tools as ft
-from chip_smoke import WIDE_VOCAB_SIZE, write_wide_fixture  # noqa: F401
 from hutoken_tpu.context import TokenizerContext
 from hutoken_tpu.tables import build_encoder_tables
+from hutoken_tpu_torch.corpora import WIDE_VOCAB_SIZE, write_wide_fixture  # noqa: F401
 
 BYTE_CONFIGS = ("small", "big-vocab", "big-merges")
 HIGH_BYTES = bytes(range(0x20, 0x7F)) + bytes(range(0x80, 0x100))
