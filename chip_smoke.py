@@ -471,41 +471,6 @@ def seg_vs_plain(device: str, docs: list[str], words: list[str], label: str) -> 
     return result
 
 
-def seg_classes_ab(rounds: int = 4) -> None:
-    """The segmented kernel with its 16-lane class for 9-16-byte words
-    and without it (those words then run on the whole warp), timed in
-    turns on one raw-path chunk of the unique corpus for each committed
-    table, each held equal to the plain twin first.
-
-        python3 -c 'import chip_smoke; chip_smoke.seg_classes_ab()'
-    """
-    from hutoken_tpu_torch.ops import seg_merge as SM
-    from hutoken_tpu_torch.profile_gather import card_label
-    from hutoken_tpu_torch.tables import device_tables
-
-    label = card_label()
-    print(label)
-    variants = {"8/16/32": (), "8/32": ("-DHT_SEG_TILE16=0",)}
-    with ThreadPoolExecutor(2) as pool:
-        list(pool.map(SM.build, variants.values()))
-    args_chunk = raw_chunk(build_unique_corpus(UNIQUE_MB))
-    for name in ("small", "big-vocab", "big-merges"):
-        ctx, enc = load_config(fixture_paths(name))
-        tab = device_tables(enc, ctx, "cuda")
-        args = seg_inputs("cuda", *args_chunk)
-        want = SM.seg_merge_plain(tab, *args)
-        times = {v: [] for v in variants}
-        for v, d in variants.items():
-            check(bool((SM.seg_merge(tab, *args, defines=d) == want).all()), f"seg {v} == twin ({name})")
-        for _ in range(rounds):
-            for v, d in variants.items():
-                times[v].append(kernel_ms(lambda: SM.seg_merge(tab, *args, defines=d)))
-        print(f"[{label}] seg classes {name:10s} raw chunk {args[0].shape[0]} B, "
-              f"{args[1].shape[0]} words, in turns: "
-              + "; ".join(f"{v} " + " / ".join(f"{t:.4f}" for t in ts)
-                          + f" ms (min {min(ts):.4f}, max {max(ts):.4f})" for v, ts in times.items()))
-
-
 # ------------------------------------------------------- phases 4 to 7
 
 

@@ -35,19 +35,15 @@
 // bound in practice is the latency of the dependent L2 probe loads per
 // round times the number of rounds, with many resident tiles to hide it;
 // tiles of the word's size keep the lanes of short words busy, where one
-// warp per word left about 27 of 32 lanes idle.
+// warp per word left about 27 of 32 lanes idle.  Without the 16-lane
+// class (9-16-byte words on the whole warp) the kernel ran 10-12 % slower
+// per 4 MB chunk on the H100, timed in turns in one process.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 #include "merge_warp.cuh"
-
-// HT_SEG_TILE16=0 builds the kernel without the 16-lane class (9-16-byte
-// words then run on the whole warp), to time the two in one process.
-#ifndef HT_SEG_TILE16
-#define HT_SEG_TILE16 1
-#endif
 
 namespace {
 
@@ -107,13 +103,10 @@ seg_merge_kernel(ht::PairTable table, const int32_t* __restrict__ byte_seed,
   const int64_t wi = run + wl;
   const int len = wi < num_words ? min(max(word_len[wi], 0), 32) : 0;
   const unsigned to8 = __ballot_sync(ht::kFullMask, len >= 1 && len <= 8);
-  const int last16 = HT_SEG_TILE16 ? 16 : 8;
-  const unsigned to16 = __ballot_sync(ht::kFullMask, len > 8 && len <= last16);
-  const unsigned to32 = __ballot_sync(ht::kFullMask, len > last16);
+  const unsigned to16 = __ballot_sync(ht::kFullMask, len > 8 && len <= 16);
+  const unsigned to32 = __ballot_sync(ht::kFullMask, len > 16);
   merge_class<8>(table, byte_seed, chunk, word_start, word_len, run, to8, out, my_stage);
-  if (HT_SEG_TILE16) {
-    merge_class<16>(table, byte_seed, chunk, word_start, word_len, run, to16, out, my_stage);
-  }
+  merge_class<16>(table, byte_seed, chunk, word_start, word_len, run, to16, out, my_stage);
   merge_class<32>(table, byte_seed, chunk, word_start, word_len, run, to32, out, my_stage);
 }
 

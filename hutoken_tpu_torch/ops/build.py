@@ -66,13 +66,11 @@ def source_digest(paths, flags=NVCC_FLAGS) -> str:
     return h.hexdigest()[:16]
 
 
-def build_library(name: str, defines: tuple[str, ...] = ()) -> str:
-    """Compile ``csrc/<name>.cu`` (with extra ``-D`` flags ``defines``)
-    into ``_build/lib<name>_<digest>.so`` unless it exists; returns its
-    path."""
+def build_library(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` into ``_build/lib<name>_<digest>.so``
+    unless it exists; returns its path."""
     source = os.path.join(CSRC, f"{name}.cu")
-    flags = (*NVCC_FLAGS, *defines)
-    so = os.path.join(BUILD_DIR, f"lib{name}_{source_digest(kernel_files(source), flags)}.so")
+    so = os.path.join(BUILD_DIR, f"lib{name}_{source_digest(kernel_files(source))}.so")
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -80,7 +78,7 @@ def build_library(name: str, defines: tuple[str, ...] = ()) -> str:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [nvcc(), *flags, "-o", tmp, source],
+            [nvcc(), *NVCC_FLAGS, "-o", tmp, source],
             capture_output=True, text=True, timeout=600,
         )
         if proc.returncode != 0:

@@ -19,15 +19,15 @@ from .build import build_library
 from .fused_merge import MAX_WORD, merge_rounds
 
 
-def build(defines: tuple[str, ...] = ()) -> str:
-    """Compile the kernel (once per digest of its source, headers and
-    ``-D`` flags); returns the shared library's path."""
-    return build_library("seg_merge", defines)
+def build() -> str:
+    """Compile the kernel (once per digest of its source and headers);
+    returns the shared library's path."""
+    return build_library("seg_merge")
 
 
 @functools.lru_cache(maxsize=None)
-def _library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
-    lib = ctypes.CDLL(build(defines))
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(build())
     p = ctypes.c_void_p
     lib.ht_seg_merge.restype = ctypes.c_int
     lib.ht_seg_merge.argtypes = [
@@ -57,7 +57,7 @@ def _check_inputs(tab, chunk, word_start, word_len) -> None:
 
 
 def seg_merge(tab, chunk: torch.Tensor, word_start: torch.Tensor,
-              word_len: torch.Tensor, defines: tuple[str, ...] = ()) -> torch.Tensor:
+              word_len: torch.Tensor) -> torch.Tensor:
     """Greedy merge of W words of a chunk, in place.
 
     ``chunk`` uint8 [N]; word w is ``chunk[word_start[w] :
@@ -84,7 +84,7 @@ def seg_merge(tab, chunk: torch.Tensor, word_start: torch.Tensor,
     word_len = word_len.contiguous()
     with torch.cuda.device(chunk.device):
         stream = torch.cuda.current_stream(chunk.device).cuda_stream
-        rc = _library(defines).ht_seg_merge(
+        rc = _library().ht_seg_merge(
             tab.pslots.data_ptr(), tab.cap_mask, tab.probe_len, int(tab.minsuper is not None),
             tab.byte_seed.data_ptr(), chunk.data_ptr(), word_start.data_ptr(),
             word_len.data_ptr(), W, out.data_ptr(), stream,
