@@ -28,8 +28,12 @@ own:
    chunk (4 MB) of the unique corpus.  Each kernel's bound counts the bytes it must move, the pair
    table's slots as the plain run probes them;
 4. gather probe: ``hutoken_tpu_torch.profile_gather`` at every shape of
-   the three TPU gather-profiling scripts, each gather kernel equal to
-   its twin (tolerance 0), kernel, twin and one-PyTorch-call times;
+   the three TPU gather-profiling scripts and at its edge shapes (ragged
+   counts, views at a 4-byte offset, ``gather_cols`` tables of 4,096,
+   6,144, 14,000 and 16,384 rows and of width 100), each gather kernel
+   equal to its twin (tolerance 0), kernel, twin and one-PyTorch-call
+   times, and the
+   kernel's time under a cold L2, against which its bound is read;
 5. main path: the facade's ``initialize`` + ``batch_encode`` on the
    committed 23,096-id fixture (merges.txt and string-path configs)
    over a 24 MB Zipf corpus and an 8 MB high-entropy corpus.  Under
@@ -617,7 +621,8 @@ def gather_probe(device: str, label: str) -> list[dict]:
     """Phase 4: the gather probe at every shape of the three scripts, its
     kernels' counts zeroed right before and read right after.  Returns
     one kernels-line entry per TPU kernel: the worst error over its
-    shapes, the times at the largest shape of its Pallas loop."""
+    shapes, the times at the largest shape of its Pallas loop, and the
+    share of its bound from the time under a cold L2."""
     from hutoken_tpu_torch import profile_gather as PG
     from hutoken_tpu_torch.ops import gather as G
 
@@ -643,9 +648,11 @@ def gather_probe(device: str, label: str) -> list[dict]:
             "bound_ms": main["bound_ms"],
             "bound_by": "bytes",
             "library_ms": main["library_ms"],
-            "share": main["bound_ms"] / main["ms"],
+            "cold_ms": main["cold_ms"],
+            "share": main["bound_ms"] / main["cold_ms"],
             "shape": main["case"],
             "ms_by_shape": {r["case"]: r["ms"] for r in mine},
+            "cold_ms_by_shape": {r["case"]: r["cold_ms"] for r in mine},
             "plain_ms_by_shape": {r["case"]: r["plain_ms"] for r in mine},
             "library_ms_by_shape": {r["case"]: r["library_ms"] for r in mine},
             "bound_ms_by_shape": {r["case"]: r["bound_ms"] for r in mine},

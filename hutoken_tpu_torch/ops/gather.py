@@ -9,7 +9,10 @@ says how each is laid out for Hopper.  ``python -m
 hutoken_tpu_torch.profile_gather`` runs them at the scripts' shapes.
 
 Each entry point launches its kernel for CUDA tensors and runs its twin
-only for CPU tensors: there is no fallback from one to the other.
+only for CPU tensors: there is no fallback from one to the other.  The
+launch plans of the redesigned kernels (:func:`gather_1d_plan`,
+:func:`gather_cols_plan`) are plain functions passed to the C entry
+points, so that the CPU tests can check them.
 Indices must be in range, as the TPU kernels assume; the kernels do not
 check them.
 """
@@ -18,12 +21,20 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 
 import torch
 
 from .build import build_library
 
 LANES = 128  # the TPU's lane width, which fixes the two-level layout
+# The launch geometry of the planned kernels, which csrc/gather.cu takes
+# from the plans and keeps no copy of.
+THREADS = 256  # gather_1d's block
+SLAB_THREADS = 512  # gather_cols' slab block: one block per SM
+TMA_WIDTHS = (32, 16, 8, 4)  # gather_cols' slab widths, widest first
+BOX_ROWS = 256  # table rows of a TMA box (at most 256)
+BAR_BYTES = 16  # the mbarrier's room in a block's shared memory
 
 
 def build() -> str:
@@ -36,13 +47,16 @@ def build() -> str:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     p, i64 = ctypes.c_void_p, ctypes.c_int64
+    i32 = ctypes.c_int
     lib.ht_gather_smem_limit.restype = ctypes.c_int
     lib.ht_gather_smem_limit.argtypes = []
     for name, args in (
-        ("ht_gather_1d", [p, i64, p, i64, p, ctypes.c_int, p]),
+        ("ht_gather_1d_blocks_per_sm", [i32, i32, i64, ctypes.POINTER(ctypes.c_int)]),
+        ("ht_gather_1d", [p, i64, i32, i32, i32, p, i64, i32, i32, i32, i32, i64, i64, p, p]),
         ("ht_gather_two_level", [p, p, i64, p, p]),
         ("ht_gather_rows", [p, i64, i64, p, i64, p, p]),
-        ("ht_gather_cols", [p, i64, p, i64, p, p]),
+        ("ht_gather_cols", [p, i64, i64, p, i64, i32, i32, i32, i32, i32, i32, i32, i64, i64,
+                            p, p]),
     ):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
@@ -55,6 +69,160 @@ def _smem_limit(device_index: int) -> int:
     """Bytes of shared memory a block may opt in to on that card."""
     with torch.cuda.device(device_index):
         return _library().ht_gather_smem_limit()
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(device_index: int, smem: bool, smem_bytes: int) -> int:
+    """gather_1d blocks that fit on one SM of that card at once."""
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        rc = _library().ht_gather_1d_blocks_per_sm(int(smem), THREADS, smem_bytes,
+                                                   ctypes.byref(per_sm))
+    if rc != 0:
+        raise RuntimeError(f"gather_1d occupancy query failed: CUDA error {rc}")
+    return max(per_sm.value, 1)
+
+
+def _index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def _lead(addr: int) -> int:
+    """int32 entries from ``addr`` to the next 16-byte boundary (0-3)."""
+    return (-addr % 16) // 4
+
+
+@dataclass(frozen=True)
+class Gather1dPlan:
+    """How :func:`gather_1d`'s kernel covers ``n`` lookups: block 0 looks
+    up indices ``[0, head)`` and ``[head + 4 * vectors, n)`` one by one;
+    block ``b`` of ``blocks`` blocks of ``threads`` threads the 16-byte
+    vectors ``[b * per_block, (b + 1) * per_block)`` of the ``vectors``
+    that start at index ``head``.  Staging, ``smem_bytes`` of shared
+    memory hold table entry ``i`` at int32 ``stage_at + i``, so that the
+    bulk copy's first entry, ``lead``, lands on a 16-byte boundary, and
+    the mbarrier at int32 ``bar_at``, the first 16-byte boundary after
+    the table."""
+
+    head: int
+    vectors: int
+    blocks: int
+    threads: int
+    per_block: int
+    lead: int
+    stage_at: int
+    bar_at: int
+    smem_bytes: int
+
+
+def _stage_layout(table_len: int, table_addr: int) -> tuple[int, int]:
+    """The int32s of shared memory where the staged table's entry 0 and
+    the mbarrier go."""
+    stage_at = (4 - _lead(table_addr)) % 4
+    return stage_at, -(-(stage_at + table_len) // 4) * 4
+
+
+def gather_1d_smem_bytes(table_len: int, table_addr: int) -> int:
+    """Shared memory the staging kernel takes for this table."""
+    return 4 * _stage_layout(table_len, table_addr)[1] + BAR_BYTES
+
+
+def gather_1d_plan(n: int, table_len: int, smem: bool, idx_addr: int, table_addr: int,
+                   sms: int, per_sm: int) -> Gather1dPlan:
+    """The launch plan of :func:`gather_1d` for ``n`` indices at
+    ``idx_addr`` (the output at the same address mod 16) into a table of
+    ``table_len`` entries at ``table_addr``, on a card of ``sms`` SMs that
+    fit ``per_sm`` blocks each.
+
+    Through L2, a block per 256 vectors, at most one wave.  Staging, each
+    block copies the whole table, so there are as many blocks as gather
+    at least ``table_len`` indices each (staging then moves no more
+    bytes than the gather), but at least one per SM while the vectors
+    last, and at most one wave."""
+    head = min(_lead(idx_addr), n)
+    vectors = (n - head) // 4
+    by_threads = -(-vectors // THREADS)
+    if smem:
+        blocks = max(-(-n // max(table_len, 1)), min(sms, by_threads))
+    else:
+        blocks = by_threads
+    blocks = max(1, min(blocks, sms * per_sm, max(vectors, 1)))
+    per_block = -(-vectors // blocks)
+    if per_block:
+        blocks = -(-vectors // per_block)
+    lead = _lead(table_addr) if smem else 0
+    stage_at, bar_at = _stage_layout(table_len, table_addr) if smem else (0, 0)
+    smem_bytes = gather_1d_smem_bytes(table_len, table_addr) if smem else 0
+    return Gather1dPlan(head, vectors, blocks, THREADS, per_block, lead, stage_at, bar_at,
+                        smem_bytes)
+
+
+@dataclass(frozen=True)
+class GatherColsPlan:
+    """How :func:`gather_cols`' kernel covers a ``[rows, width]`` index
+    array.  Slab route (``k`` > 0): block ``(x, s)`` of a ``row_splits``
+    x ``slabs`` grid of ``threads``-thread blocks gathers table columns
+    ``[s * k, min((s + 1) * k, width))`` for index rows ``[x * rows_per,
+    min((x + 1) * rows_per, rows))`` from a slab of those columns, which
+    arrives by TMA in ``boxes`` boxes of ``box_rows`` table rows, each
+    loaded once per cluster of ``cluster`` blocks (along x) and
+    multicast to all of them; ``smem_bytes`` of shared memory hold the
+    slab and then the mbarrier.  L2 route (``k`` 0): a block per index
+    row, no shared memory."""
+
+    k: int
+    cluster: int
+    boxes: int
+    box_rows: int
+    slabs: int
+    row_splits: int
+    threads: int
+    rows_per: int
+    smem_bytes: int
+
+
+L2_ROUTE = GatherColsPlan(0, 1, 0, 0, 0, 0, 0, 0, 0)
+
+
+def gather_cols_plan(table_rows: int, width: int, rows: int, aligned: bool,
+                     sms: int, smem_limit: int) -> GatherColsPlan:
+    """The launch plan of :func:`gather_cols` for a ``[table_rows, width]``
+    table and ``[rows, width]`` indices, ``aligned`` if the table, the
+    indices and the output start on 16-byte boundaries, on a card of
+    ``sms`` SMs whose blocks may take ``smem_limit`` bytes of shared
+    memory.
+
+    The slab route takes aligned tensors of a width that is a multiple of
+    4: the widest slab of ``TMA_WIDTHS`` whose padded table columns fit
+    (a wider slab reads fewer, fuller index and output rows per lookup),
+    shared by a cluster of 2 blocks where it is 4 columns wide (the
+    staging then dominates, and multicast halves its L2 reads), about one
+    block per SM over all slabs.  Every other input, and a table too long
+    for a slab of 4 columns, takes the L2 route."""
+    if not aligned or width % 4:
+        return L2_ROUTE
+    boxes = -(-table_rows // BOX_ROWS)
+    fits = [k for k in TMA_WIDTHS if boxes * BOX_ROWS * k * 4 + BAR_BYTES <= smem_limit]
+    if not fits:
+        return L2_ROUTE
+    k = min(fits[0], width)
+    cluster = 2 if fits[0] == 4 else 1
+    slabs = -(-width // k)
+    rows = max(rows, 1)
+    rows_per = -(-rows // max(1, min(rows, sms // slabs)))
+    # none without rows but those a cluster pads out (they stage their
+    # share of the slab all the same)
+    row_splits = -(-rows // rows_per)
+    row_splits = -(-row_splits // cluster) * cluster
+    if rows_per * k >= 1 << 31:
+        raise ValueError(f"gather_cols: {rows_per} index rows a block do not fit 32-bit counts")
+    return GatherColsPlan(k, cluster, boxes, BOX_ROWS, slabs, row_splits, SLAB_THREADS, rows_per,
+                          boxes * BOX_ROWS * k * 4 + BAR_BYTES)
 
 
 def _check(name: str, *pairs) -> torch.device:
@@ -83,33 +251,53 @@ def gather_1d(table: torch.Tensor, idx: torch.Tensor, smem: bool) -> torch.Tenso
     ``k_take``); ``smem=True`` stages it in shared memory first (the
     counterpart of ``k_taa``) and raises if ``C`` does not fit.
 
-    A CUDA tensor launches the kernel on the current stream without
-    synchronising and adds one to ``gather_1d.launches_by_mode["smem" |
-    "l2"]``; a CPU tensor runs :func:`gather_1d_plain`.
+    A CUDA tensor launches the kernel with :func:`gather_1d_plan`'s plan
+    on the current stream without synchronising and adds one to
+    ``gather_1d.launches_by_mode["smem" | "l2"]``; its output starts at
+    the indices' address mod 16 (a view into a buffer 3 entries longer
+    when the indices are a view at such an offset).  A CPU tensor runs
+    :func:`gather_1d_plain`.
     """
     dev = _check("gather_1d", ("table", table), ("idx", idx))
     if table.dim() != 1:
         raise ValueError(f"gather_1d: table must be 1-D, got {tuple(table.shape)}")
     if dev.type == "cpu":
         return gather_1d_plain(table, idx)
-    if smem:
-        limit = _smem_limit(dev.index if dev.index is not None else torch.cuda.current_device())
-        if table.numel() * 4 > limit:
-            raise ValueError(
-                f"gather_1d: a table of {table.numel()} int32 does not fit the "
-                f"{limit} bytes of shared memory a block may use"
-            )
-    out = torch.empty(idx.shape, dtype=torch.int32, device=dev)
-    if idx.numel() == 0 or table.numel() == 0:
-        return out
     table, idx = table.contiguous(), idx.contiguous()
-    _launch("gather_1d", _library().ht_gather_1d, dev, table.data_ptr(), table.numel(),
-            idx.data_ptr(), idx.numel(), out.data_ptr(), int(smem))
+    di = _index(dev)
+    C, n = table.numel(), idx.numel()
+    smem_bytes = gather_1d_smem_bytes(C, table.data_ptr()) if smem else 0
+    if smem and smem_bytes > _smem_limit(di):
+        raise ValueError(
+            f"gather_1d: a table of {C} int32 does not fit the "
+            f"{_smem_limit(di)} bytes of shared memory a block may use"
+        )
+    out = _same_alignment(idx, dev)
+    if n == 0 or C == 0:
+        return out
+    plan = gather_1d_plan(n, C, smem, idx.data_ptr(), table.data_ptr(), _sm_count(di),
+                          _blocks_per_sm(di, smem, smem_bytes))
+    _launch("gather_1d", _library().ht_gather_1d, dev, table.data_ptr(), C, plan.lead,
+            plan.stage_at, plan.bar_at, idx.data_ptr(), n, plan.head, int(smem), plan.blocks,
+            plan.threads,
+            plan.per_block, plan.smem_bytes, out.data_ptr())
     gather_1d.launches_by_mode["smem" if smem else "l2"] += 1
     return out
 
 
 gather_1d.launches_by_mode = {"l2": 0, "smem": 0}
+
+
+def _same_alignment(idx: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """An empty int32 tensor of ``idx``'s shape whose address agrees with
+    ``idx``'s mod 16 (a view into a buffer 3 entries longer when ``idx``
+    is a view at an offset), so that one scalar peel aligns the kernel's
+    16-byte index loads and output stores together."""
+    if idx.data_ptr() % 16 == 0:
+        return torch.empty(idx.shape, dtype=torch.int32, device=dev)
+    buf = torch.empty(idx.numel() + 3, dtype=torch.int32, device=dev)
+    shift = (idx.data_ptr() - buf.data_ptr()) % 16 // 4
+    return buf[shift: shift + idx.numel()].view(idx.shape)
 
 
 def gather_1d_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -191,8 +379,8 @@ def gather_cols(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``out[n, l] = tbl[idx[n, l], l]`` for ``tbl`` ``[C, K]`` and
     ``idx`` ``[M, K]`` (``kernel0`` of ``profile_gather3.py``, K = 128).
 
-    CUDA: the kernel, counted in ``gather_cols.launches``; CPU:
-    :func:`gather_cols_plain`.
+    CUDA: the kernel with :func:`gather_cols_plan`'s plan, counted in
+    ``gather_cols.launches``; CPU: :func:`gather_cols_plain`.
     """
     dev = _check("gather_cols", ("tbl", tbl), ("idx", idx))
     if tbl.dim() != 2 or idx.dim() != 2 or tbl.shape[1] != idx.shape[1]:
@@ -205,8 +393,14 @@ def gather_cols(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if idx.numel() == 0:
         return out
     tbl, idx = tbl.contiguous(), idx.contiguous()
-    _launch("gather_cols", _library().ht_gather_cols, dev, tbl.data_ptr(), tbl.shape[1],
-            idx.data_ptr(), idx.shape[0], out.data_ptr())
+    di = _index(dev)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (tbl, idx, out))
+    plan = gather_cols_plan(tbl.shape[0], tbl.shape[1], idx.shape[0], aligned,
+                            _sm_count(di), _smem_limit(di))
+    _launch("gather_cols", _library().ht_gather_cols, dev, tbl.data_ptr(), tbl.shape[0],
+            tbl.shape[1], idx.data_ptr(), idx.shape[0], plan.k, plan.cluster, plan.boxes,
+            plan.box_rows, plan.slabs, plan.row_splits, plan.threads, plan.rows_per,
+            plan.smem_bytes, out.data_ptr())
     gather_cols.launches += 1
     return out
 

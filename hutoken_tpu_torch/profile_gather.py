@@ -6,12 +6,17 @@ kernels of ``ops/gather.py`` and their plain PyTorch twins.
 
     python -m hutoken_tpu_torch.profile_gather
 
-For each shape it checks kernel == twin exactly (and, for the two-level
+For each shape, and for the edge shapes of :func:`edge_cases` (ragged
+counts, views at an offset, tables past the shared-memory slab), it
+checks kernel == twin exactly (and, for the two-level
 gather, the script's composed semantics and whether it happens to equal
 a true gather) and prints both times with CUDA events and both rates in
 M lookups/s, beside the shape's bound (the bytes it must move at the
 card's memory rate) and the time of one PyTorch call computing the same
-function on indices prepared beforehand, a yardstick only.  The scripts' XLA-only sections (``profile_gather3.py``
+function on indices prepared beforehand, a yardstick only.  Calls run
+back to back, so a shape whose bytes fit the L2 cache may run faster
+than its bound; the kernel is also timed with L2 flushed before each
+call, and its share of the bound is taken from that cold time.  The scripts' XLA-only sections (``profile_gather3.py``
 sections 1 and 2) become rows whose plain time is the point; the kernel
 of the same function runs beside them.  Inputs are drawn on the device
 from a seeded generator.  Without a CUDA device it exits with an error:
@@ -21,6 +26,8 @@ a CPU run measures nothing.
 from __future__ import annotations
 
 import argparse
+import functools
+import math
 import subprocess
 import sys
 import time
@@ -33,6 +40,7 @@ from .ops import gather as G
 
 REPS = 20  # timed calls per kernel and shape
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+L2_FLUSH_BYTES = 128 << 20  # read between cold calls: over twice the H100's 50 MB L2
 SEED = 0
 LEAD_CYCLES = 1 << 25  # first length of the sleep that leads each timed loop
 LEAD_DOUBLINGS = 4  # times the sleep may double before the timer gives up
@@ -42,8 +50,9 @@ LEAD_DOUBLINGS = 4  # times the sleep may double before the timer gives up
 class Case:
     """One probe shape.  ``probe`` is ``take`` / ``taa`` (gather_1d
     through L2 / shared memory), ``two_level``, ``rows`` or ``cols``;
-    ``origin`` the script line whose loop it ports; ``pallas`` False for
-    the shapes of the scripts' XLA-only sections."""
+    ``origin`` the script line whose loop it ports ("edge" for
+    :func:`edge_cases`); ``pallas`` False for the shapes of the scripts'
+    XLA-only sections and the edge shapes."""
 
     probe: str
     origin: str
@@ -103,15 +112,49 @@ def script_cases() -> list[Case]:
     return cases
 
 
+def edge_cases() -> list[Case]:
+    """Shapes no script has, for the kernels' edges: a count of indices
+    that is no multiple of 4 or 128 (ragged N), a table and indices that
+    are views at a 4-byte offset (``off``: they start ``off`` int32 into
+    a larger tensor, so not on a 16-byte boundary), a table length that is
+    no multiple of 4, ``gather_cols`` with tables of 4,096 and 6,144 rows
+    (slabs of 8 columns), 14,000 rows (a slab of 4 columns, 224,000
+    bytes), 16,384 rows (no slab fits: the L2 route), a width of 100 (the
+    last slab 4 columns wide) and an index view at an offset (the L2
+    route)."""
+    edge = "edge"
+    return [
+        Case("take", edge, dict(C=8192, N=131073), pallas=False),
+        Case("taa", edge, dict(C=8192, N=131073), pallas=False),
+        Case("take", edge, dict(C=8192, N=131072, off=1), pallas=False),
+        Case("taa", edge, dict(C=8192, N=131072, off=1), pallas=False),
+        Case("taa", edge, dict(C=8191, N=1001, off=3), pallas=False),
+        Case("cols", edge, dict(C=4096, N=1 << 20), pallas=False),
+        Case("cols", edge, dict(C=6144, N=1 << 20), pallas=False),
+        Case("cols", edge, dict(C=14000, N=1 << 20), pallas=False),
+        Case("cols", edge, dict(C=16384, N=1 << 20), pallas=False),
+        Case("cols", edge, dict(C=512, K=100, N=100 * 4099), pallas=False),
+        Case("cols", edge, dict(C=2048, N=1 << 20, off=1), pallas=False),
+    ]
+
+
 def make_inputs(case: Case, gen: torch.Generator, device) -> tuple:
-    """The script's tensors for one case (int32, drawn on ``device``)."""
+    """The script's tensors for one case (int32, drawn on ``device``).
+    Indices come as ``[N / 128, 128]`` where N allows, else flat; with
+    ``off`` in the dims the table and the indices are views that start
+    ``off`` entries into larger tensors."""
     d = case.dims
+    off = d.get("off", 0)
 
     def ints(hi, shape):
-        return torch.randint(0, hi, shape, generator=gen, device=device, dtype=torch.int32)
+        flat = torch.randint(0, hi, (math.prod(shape) + off,), generator=gen, device=device,
+                             dtype=torch.int32)
+        return flat[off:].view(shape)
 
     if case.probe in ("take", "taa"):
-        return ints(1 << 20, (d["C"],)), ints(d["C"], (d["N"] // G.LANES, G.LANES))
+        N = d["N"]
+        shape = (N // G.LANES, G.LANES) if N % G.LANES == 0 else (N,)
+        return ints(1 << 20, (d["C"],)), ints(d["C"], shape)
     if case.probe == "two_level":
         return (ints(1 << 20, (d["C"] // G.LANES, G.LANES)),
                 ints(d["C"], (d["N"] // G.LANES, G.LANES)))
@@ -120,7 +163,8 @@ def make_inputs(case: Case, gen: torch.Generator, device) -> tuple:
     # cols: the script broadcasts a [C, 1] table, whose equal columns would
     # hide a kernel that reads the wrong column; the same layout, every
     # entry drawn
-    return ints(1 << 16, (d["C"], G.LANES)), ints(d["C"], (d["N"] // G.LANES, G.LANES))
+    K = d.get("K", G.LANES)
+    return ints(1 << 16, (d["C"], K)), ints(d["C"], (d["N"] // K, K))
 
 
 def kernel_and_twin(probe: str) -> tuple[Callable, Callable]:
@@ -168,9 +212,22 @@ def bound_bytes(probe: str, args: tuple) -> int:
     return 4 * (entries + 2 * idx.numel())
 
 
-def cuda_time(fn) -> float:
+@functools.lru_cache(maxsize=None)
+def _l2_flush() -> Callable:
+    """A call that reads ``L2_FLUSH_BYTES`` on the current device, which
+    evicts whatever an earlier call left in its L2 and leaves it holding
+    clean lines (a write would leave dirty ones, whose write-back would
+    land in the next timed call)."""
+    buf = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+    return buf.sum
+
+
+def cuda_time(fn, cold: bool = False) -> float:
     """Device ms per call of ``fn`` over ``REPS`` back-to-back calls, by
-    CUDA events, after one warm call.
+    CUDA events, after one warm call.  With ``cold``, L2 is flushed
+    before each call and each call is timed between its own two events,
+    the flush outside them: the time of a caller who finds the cache
+    cold.
 
     A call at the scripts' smaller shapes runs for a few microseconds on
     the card, less than the host takes to enqueue it, so events around a
@@ -178,21 +235,33 @@ def cuda_time(fn) -> float:
     the stream while the host enqueues every call; the sleep is doubled
     until it outlasts the enqueue, and the timer raises if it never does
     rather than return a time the host paced."""
+    flush = _l2_flush() if cold else None
     fn()
     torch.cuda.synchronize()
     for doubling in range(LEAD_DOUBLINGS + 1):
         lead, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        marks = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                 for _ in range(REPS if cold else 0)]
         lead.record()
         torch.cuda._sleep(LEAD_CYCLES << doubling)
         start.record()
         t0 = time.perf_counter()
-        for _ in range(REPS):
-            fn()
+        if cold:
+            for before, after in marks:
+                flush()
+                before.record()
+                fn()
+                after.record()
+        else:
+            for _ in range(REPS):
+                fn()
         end.record()
         enqueue_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
         lead_ms = lead.elapsed_time(start)
         if lead_ms > enqueue_ms:
+            if cold:
+                return sum(before.elapsed_time(after) for before, after in marks) / REPS
             return start.elapsed_time(end) / REPS
     raise RuntimeError(
         f"cuda_time: a {lead_ms:.3f} ms lead did not outlast the host's "
@@ -202,8 +271,9 @@ def cuda_time(fn) -> float:
 
 def run_case(case: Case, device, gen: torch.Generator,
              timer: Optional[Callable] = None) -> dict:
-    """Check one case and (with a timer) time kernel and twin.  Raises
-    if the kernel differs from its twin or the composed semantics."""
+    """Check one case and (with a timer) time kernel and twin, and the
+    kernel again under a cold L2.  Raises if the kernel differs from its
+    twin or the composed semantics."""
     args = make_inputs(case, gen, device)
     kernel, twin = kernel_and_twin(case.probe)
     got, want = kernel(*args), twin(*args)
@@ -224,6 +294,7 @@ def run_case(case: Case, device, gen: torch.Generator,
             raise RuntimeError(f"two_level {case.name}: not the composed gather")
     if timer is not None:
         row["ms"] = timer(lambda: kernel(*args))
+        row["cold_ms"] = timer(lambda: kernel(*args), cold=True)
         row["plain_ms"] = timer(lambda: twin(*args))
         lib = library_call(case.probe, args)
         row["library_ms"] = timer(lib) if lib is not None else None
@@ -233,13 +304,13 @@ def run_case(case: Case, device, gen: torch.Generator,
 
 def run(device, cases: Optional[list[Case]] = None, timer: Optional[Callable] = None,
         label: str = "", out=sys.stdout) -> list[dict]:
-    """Every case on ``device``; one line each.  Times and rates only
-    with a timer (on the card, :func:`cuda_time`); a CPU run prints "not
-    measured"."""
+    """Every case (by default the scripts' and the edge shapes) on
+    ``device``; one line each.  Times and rates only with a timer (on the
+    card, :func:`cuda_time`); a CPU run prints "not measured"."""
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     rows = []
-    for case in cases if cases is not None else script_cases():
+    for case in cases if cases is not None else script_cases() + edge_cases():
         row = run_case(case, device, gen, timer)
         rows.append(row)
         kernel, mode, _replaces = KERNELS[case.probe]
@@ -256,8 +327,9 @@ def run(device, cases: Optional[list[Case]] = None, timer: Optional[Callable] = 
             times = (f"kernel {row['ms']:.4f} ms ({n / row['ms'] / 1e3:.0f} M/s), "
                      f"twin {row['plain_ms']:.4f} ms ({n / row['plain_ms'] / 1e3:.0f} M/s), "
                      f"one PyTorch call {'%.4f ms' % lib if lib is not None else 'none'}, "
+                     f"kernel under a cold L2 {row['cold_ms']:.4f} ms, "
                      f"bound {row['bound_ms']:.4f} ms (bytes), "
-                     f"share {row['bound_ms'] / row['ms']:.3f}")
+                     f"share {row['bound_ms'] / row['cold_ms']:.3f} (of the cold time)")
         prefix = f"[{label}] " if label else ""
         print(f"{prefix}gather probe {what:18s} {case.name:24s} ({case.origin}): "
               f"kernel == twin (max_abs_err {row['max_abs_err']}, tolerance 0);{extra} {times}",

@@ -111,23 +111,28 @@ def build_pair_table(
     Capacity starts at load factor 0.5 and doubles until the maximum
     displacement fits ``max_probe_len`` — short unconditional probe
     chains keep the device graph small and the per-lookup cost flat.
+
+    The same table as the original's, slot for slot (pairs go in in
+    dict order), with the hashes computed once for every capacity tried
+    and the probing done on Python lists rather than numpy scalars.
     """
     n = max(len(pairs), 1)
     cap = 1
     while cap < 2 * n:
         cap *= 2
+    cols = np.array([(a, b, r, m) for (a, b), (r, m) in pairs.items()],
+                    dtype=np.int64).reshape(-1, 4)
+    hashes = _mix_hash(cols[:, 0].astype(np.uint32), cols[:, 1].astype(np.uint32)).tolist()
     while True:
-        left = np.full(cap, -1, dtype=np.int32)
-        right = np.full(cap, -1, dtype=np.int32)
-        rank = np.full(cap, INF_RANK, dtype=np.int32)
-        merged = np.full(cap, -1, dtype=np.int32)
         mask = cap - 1
+        used = bytearray(cap)
+        slot = [0] * len(hashes)
         max_disp = 0
         ok = True
-        for (a, b), (r, m) in pairs.items():
-            h = int(_mix_hash(np.uint32(a), np.uint32(b))) & mask
+        for i, h in enumerate(hashes):
+            h &= mask
             disp = 0
-            while left[h] != -1:
+            while used[h]:
                 h = (h + 1) & mask
                 disp += 1
                 if disp > 64:
@@ -135,17 +140,20 @@ def build_pair_table(
                     break
             if not ok:
                 break
-            left[h] = a
-            right[h] = b
-            rank[h] = r
-            merged[h] = m
-            max_disp = max(max_disp, disp)
+            used[h] = 1
+            slot[i] = h
+            if disp > max_disp:
+                max_disp = disp
         if ok and max_disp + 1 > max_probe_len and cap < (1 << 24):
             ok = False  # too much clustering: grow for shorter probes
         if ok:
-            max_val = 0
-            for (a, b), (r, m) in pairs.items():
-                max_val = max(max_val, a, b, r, m)
+            left = np.full(cap, -1, dtype=np.int32)
+            right = np.full(cap, -1, dtype=np.int32)
+            rank = np.full(cap, INF_RANK, dtype=np.int32)
+            merged = np.full(cap, -1, dtype=np.int32)
+            for arr, col in zip((left, right, rank, merged), cols.T):
+                arr[slot] = col
+            max_val = max(int(cols.max()) if len(cols) else 0, 0)
             onehot_ok = cap <= 16384 and max_val < (1 << 24)
             return PairTable(
                 left=left,
@@ -302,6 +310,10 @@ WIDE_MAX_PROBE = 16
 # the merge kernel's candidate rank * 32 + lane is a 32-bit unsigned
 # value below its 0x7FFFFFFF sentinel
 MAX_WIDE_RANK = (1 << 26) - 1
+# the longest word, in raw bytes, that the merge kernels read the
+# minsuper bound for (``ops/fused_merge.py::MAX_WORD``, which this module
+# does not import: ``ops/`` imports it)
+KERNEL_WORD_BYTES = 32
 
 
 @dataclass(frozen=True)
@@ -338,9 +350,23 @@ class DeviceTables:
         return (self.slots if self.wide else self.pslots).device
 
 
+def minsuper_spelling_cap(byte_seed_ids: np.ndarray, id2str: dict[int, bytes]) -> int:
+    """The longest spelling, in bytes, of a pair that can form inside a
+    word the merge kernels take.  A word holds at most
+    ``KERNEL_WORD_BYTES`` raw bytes, each seeded by one token, and every
+    token formed from it is spelled as the concatenation of its bytes'
+    seed spellings: at most that many times the longest seed spelling (2
+    bytes for a GPT-2 byte encoder, whose seeds are 1- or 2-byte UTF-8
+    characters; so a cap of ``KERNEL_WORD_BYTES`` spelled bytes would
+    miss pairs of accented words)."""
+    longest = max((len(id2str.get(int(i), b"")) for i in byte_seed_ids), default=1)
+    return KERNEL_WORD_BYTES * max(longest, 1)
+
+
 def build_minsuper(
     pairs: dict[tuple[int, int], tuple[int, int]],
     id2str: dict[int, bytes],
+    max_spelling: Optional[int] = None,
 ) -> Optional[np.ndarray]:
     """minsuper[r] = min rank over pairs whose concatenated spelling
     strictly contains the spelling of a rank-r pair (0xFFFF if none).
@@ -350,6 +376,15 @@ def build_minsuper(
     guard: a neighbour pair of current rank r can only ever take ranks
     >= minsuper[r] (or none).  None when a rank does not fit 16 bits or a
     spelling is missing; the kernel then runs single-merge rounds.
+
+    ``max_spelling`` (:func:`minsuper_spelling_cap`) leaves out the
+    containing pairs spelled longer: they never form inside a word the
+    kernels take, so they can lower no bound those words rely on.  The
+    loop visits every substring of every containing spelling and every
+    pair spelled as that substring: on a vocabulary's prefix chain of n
+    bytes, whose every split is a pair, about n^4 / 24 visits, minutes
+    for a 600-byte chain.  With the cap no spelling longer than it is
+    visited.
     """
     if not pairs:
         return np.full(1, 0xFFFF, dtype=np.int32)
@@ -371,6 +406,8 @@ def build_minsuper(
             str_minrank[s] = r
     for t, minrank_t in str_minrank.items():
         n = len(t)
+        if max_spelling is not None and n > max_spelling:
+            continue
         for ln in range(2, n):  # pair spellings have length >= 2
             for st in range(0, n - ln + 1):
                 for r in by_str.get(t[st : st + ln], ()):
@@ -390,7 +427,8 @@ def device_tables(
     device = torch.device(device)
     ms = None
     if enc.byte_seed_ids is not None:
-        ms = build_minsuper(enc.pairs, ctx.vocab.id2str)
+        id2str = ctx.vocab.id2str
+        ms = build_minsuper(enc.pairs, id2str, minsuper_spelling_cap(enc.byte_seed_ids, id2str))
     pslots = slots = None
     if pt.packed_ok:
         pkey, pval = pt.packed_arrays()

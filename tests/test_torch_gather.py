@@ -217,6 +217,112 @@ def test_entry_points_check_inputs_and_count_only_cuda_launches():
     assert G.gather_1d.launches_by_mode == {"l2": 0, "smem": 0}
 
 
+H100_SMS = 132
+H100_SMEM = 232_448  # bytes a block may opt in to
+
+
+def _h100_blocks_per_sm(smem_bytes: int) -> int:
+    """gather_1d blocks of 256 threads an H100 SM holds: 2,048 threads,
+    228 KB of shared memory with 1 KB reserved a block."""
+    return min(2048 // G.THREADS, 233_472 // (smem_bytes + 1024))
+
+
+GATHER_1D_SHAPES = sorted({(c.dims["C"], c.dims["N"]) for c in PG.script_cases()
+                           if c.probe in ("take", "taa")} | {(8192, 131073), (8191, 1001), (8192, 5)})
+
+
+@pytest.mark.parametrize("smem", [False, True])
+@pytest.mark.parametrize("C,N", GATHER_1D_SHAPES)
+def test_gather_1d_plan_covers_every_lookup_once(C, N, smem):
+    """For every probe shape and ragged ones, at each 4-byte offset of the
+    indices and the table: the plan's scalar head and tail and its blocks'
+    runs of 16-byte vectors (as csrc/gather.cu's gather_1d_kernel walks
+    them) cover every index once, the vectors start on a 16-byte
+    boundary, the staged table and its mbarrier fit shared memory with
+    the table's first bulk entry on a 16-byte boundary, and the blocks
+    fill the SMs at most once."""
+    if smem and C * 4 + 16 > H100_SMEM:
+        return
+    for off in range(4):
+        idx_addr = table_addr = 4096 + 4 * off
+        per_sm = _h100_blocks_per_sm(G.gather_1d_smem_bytes(C, table_addr) if smem else 0)
+        plan = G.gather_1d_plan(N, C, smem, idx_addr, table_addr, H100_SMS, per_sm)
+        count = np.zeros(N, dtype=np.int64)
+        count[: plan.head] += 1
+        count[plan.head + 4 * plan.vectors:] += 1
+        for b in range(plan.blocks):
+            lo, hi = b * plan.per_block, min((b + 1) * plan.per_block, plan.vectors)
+            assert lo < hi or plan.vectors == 0  # no block without work
+            count[plan.head + 4 * lo: plan.head + 4 * hi] += 1
+        assert (count == 1).all()
+        assert N - plan.head - 4 * plan.vectors < 4 and plan.head < 4
+        assert plan.vectors == 0 or (idx_addr + 4 * plan.head) % 16 == 0
+        assert 1 <= plan.blocks <= H100_SMS * per_sm
+        # the head and tail need 6 threads; a warp multiple
+        assert plan.threads % 32 == 0 and 6 <= plan.threads <= 1024
+        if smem:
+            assert (table_addr + 4 * plan.lead) % 16 == 0
+            assert (plan.stage_at + plan.lead) % 4 == 0 and plan.stage_at < 4
+            # the table, then the mbarrier on the next 16-byte boundary
+            assert plan.bar_at % 4 == 0 and 0 <= plan.bar_at - (plan.stage_at + C) < 4
+            assert 4 * plan.bar_at + G.BAR_BYTES == plan.smem_bytes <= H100_SMEM
+            # every block gathers at least C indices, or there is one per SM
+            assert plan.blocks <= max(-(-N // C), H100_SMS)
+        else:
+            assert plan.lead == 0 and plan.smem_bytes == 0
+
+
+COLS_SHAPES = [(C, 128, 8192) for C in (512, 2048, 8192)] + [
+    (6144, 128, 8192), (14000, 128, 8192), (14400, 128, 8192), (16384, 128, 8192), (512, 100, 4099),
+    (2048, 6, 1000), (3, 128, 17), (8192, 128, 1)]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("C,K,M", COLS_SHAPES)
+def test_gather_cols_plan_covers_every_lookup_once(C, K, M, aligned):
+    """For the probe's shapes and ragged ones (14,000 table rows, width
+    100, 131,073-style odd row counts): the blocks' rectangles of index
+    rows x slab columns cover every lookup once, each slab and its
+    mbarrier fit 232,448 bytes of shared memory, the slab holds every
+    table row in whole TMA boxes of at most 256 rows, clusters tile the
+    grid, and the L2 route is taken exactly where the slab cannot take
+    the input: tensors off a 16-byte boundary, a width no multiple of 4,
+    or no 4-column slab that fits."""
+    plan = G.gather_cols_plan(C, K, M, aligned, H100_SMS, H100_SMEM)
+    padded = -(-C // G.BOX_ROWS) * G.BOX_ROWS
+    assert (plan.k > 0) == (aligned and K % 4 == 0
+                            and padded * 4 * 4 + G.BAR_BYTES <= H100_SMEM)
+    if plan.k == 0:
+        assert plan == G.L2_ROUTE
+        return
+    assert plan.k % 4 == 0 and plan.smem_bytes <= H100_SMEM
+    count = np.zeros((M, K), dtype=np.int64)
+    for x in range(plan.row_splits):
+        for s in range(plan.slabs):
+            count[x * plan.rows_per: (x + 1) * plan.rows_per, s * plan.k: (s + 1) * plan.k] += 1
+    assert (count == 1).all()
+    assert (plan.row_splits - 1) * plan.rows_per < M or plan.cluster > 1
+    assert plan.box_rows <= 256 and plan.boxes * plan.box_rows >= C > (plan.boxes - 1) * plan.box_rows
+    # each box lands 128-byte aligned; the slab, then the mbarrier
+    assert plan.box_rows * plan.k * 4 % 128 == 0
+    assert plan.smem_bytes == plan.boxes * plan.box_rows * plan.k * 4 + G.BAR_BYTES
+    assert plan.cluster in (1, 2) and plan.row_splits % plan.cluster == 0
+    assert plan.threads % 32 == 0 and plan.threads <= 1024
+    # about one block per SM
+    assert plan.slabs * plan.row_splits <= max(H100_SMS, plan.slabs * plan.cluster)
+
+
+@pytest.mark.parametrize("off", range(4))
+def test_output_takes_the_index_alignment(off):
+    """gather_1d's output starts at the indices' address mod 16, so one
+    peel aligns both; a view of the right shape and dtype."""
+    base = torch.zeros(1000 + 4, dtype=torch.int32)
+    idx = base[off: off + 1000].view(10, 100)
+    out = G._same_alignment(idx, idx.device)
+    assert out.data_ptr() % 16 == idx.data_ptr() % 16
+    assert out.shape == idx.shape and out.dtype == torch.int32 and out.is_contiguous()
+
+
 def test_kernel_source_stands_alone():
     """gather.cu includes no local header: its digest is its own bytes."""
     files = B.kernel_files(os.path.join(B.CSRC, "gather.cu"))
@@ -310,11 +416,15 @@ def test_library_call_and_bound_of_each_probe(probe, dims):
 
 
 def test_probe_times_carry_bound_and_library_call():
+    out = io.StringIO()
     rows = PG.run("cpu", cases=[PG.Case("take", "t", dict(C=512, N=256)),
                                 PG.Case("two_level", "t", dict(C=2048, N=512))],
-                  timer=lambda fn: (fn(), 1.0)[1], out=io.StringIO())
+                  timer=lambda fn, cold=False: (fn(), 2.0 if cold else 1.0)[1], out=out)
     assert rows[0]["library_ms"] == 1.0 and rows[1]["library_ms"] is None
+    assert all(r["ms"] == 1.0 and r["cold_ms"] == 2.0 for r in rows)
     assert all(0 < r["bound_ms"] < 1e-3 for r in rows)
+    # the share is read from the cold time
+    assert f"share {rows[0]['bound_ms'] / 2.0:.3f} (of the cold time)" in out.getvalue()
 
 
 class _FakeCuda:
@@ -324,6 +434,7 @@ class _FakeCuda:
     def __init__(self, ms_per_cycle, host_ms_per_call, dev_ms_per_call):
         self.dev = self.host = 0.0
         self.sleeps = []
+        self.flushes = 0
         self.ms_per_cycle = ms_per_cycle
         self.host_ms, self.dev_ms = host_ms_per_call, dev_ms_per_call
         fake = self
@@ -354,6 +465,10 @@ class _FakeCuda:
         self.host += self.host_ms
         self.dev += self.dev_ms
 
+    def flush(self):
+        self.flushes += 1
+        self.dev += 0.5
+
 
 @pytest.mark.parametrize("host_ms,sleeps", [
     (0.01, 1),  # the first lead outlasts the enqueue
@@ -376,6 +491,19 @@ def test_cuda_time_times_the_device_or_raises(monkeypatch, host_ms, sleeps):
         assert fake.sleeps == [PG.LEAD_CYCLES << k for k in range(sleeps)]
 
 
+def test_cold_cuda_time_flushes_before_each_call_and_times_only_the_call(monkeypatch):
+    """Under ``cold`` every call follows an L2 flush, and the flush's
+    device time stays out of the call's time."""
+    fake = _FakeCuda(2.0 / PG.LEAD_CYCLES, 0.01, dev_ms_per_call=0.003)
+    for name in ("Event", "synchronize", "_sleep"):
+        monkeypatch.setattr(torch.cuda, name, getattr(fake, name))
+    monkeypatch.setattr(PG.time, "perf_counter", fake.perf_counter)
+    monkeypatch.setattr(PG, "_l2_flush", lambda: fake.flush)
+    assert PG.cuda_time(fake.call, cold=True) == pytest.approx(0.003)
+    assert fake.flushes == PG.REPS
+    assert PG.cuda_time(fake.call) == pytest.approx(0.003) and fake.flushes == PG.REPS
+
+
 def test_probe_main_needs_cuda(capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -383,14 +511,30 @@ def test_probe_main_needs_cuda(capsys):
     assert "no CUDA device" in capsys.readouterr().err
 
 
+# each probe at a scripts' shape, then the edge shapes: ragged N, views at
+# a 4-byte offset, a table length no multiple of 4, gather_cols on 6,144
+# table rows (an 8-column slab), 14,000 (a 4-column slab), 16,384 (the L2
+# route), width 100 and an offset index view (the L2 route)
+CUDA_CASES = [
+    ("take", dict(C=262144, N=131072)), ("taa", dict(C=8192, N=131072)),
+    ("two_level", dict(C=1 << 21, N=131072)), ("rows", dict(W=1 << 12, C2=512, L=32)),
+    ("cols", dict(C=8192, N=1 << 16)),
+    ("take", dict(C=8192, N=131073)), ("taa", dict(C=8192, N=131073)),
+    ("take", dict(C=8192, N=4099, off=1)), ("taa", dict(C=8192, N=4099, off=1)),
+    ("taa", dict(C=8191, N=1001, off=3)), ("taa", dict(C=8192, N=5, off=2)),
+    ("cols", dict(C=512, N=1 << 16)), ("cols", dict(C=2048, N=1 << 16)),
+    ("cols", dict(C=6144, N=1 << 16)),
+    ("cols", dict(C=14000, N=1 << 16)), ("cols", dict(C=16384, N=1 << 16)),
+    ("cols", dict(C=512, K=100, N=100 * 4099)), ("cols", dict(C=2048, N=1 << 16, off=1)),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("probe", sorted(PG.KERNELS))
-def test_kernel_matches_twin_on_cuda(probe):
+@pytest.mark.parametrize("probe,dims", CUDA_CASES,
+                         ids=[f"{p}-" + "-".join(f"{k}{v}" for k, v in d.items()) for p, d in CUDA_CASES])
+def test_kernel_matches_twin_on_cuda(probe, dims):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    dims = {"take": dict(C=262144, N=131072), "taa": dict(C=8192, N=131072),
-            "two_level": dict(C=1 << 21, N=131072), "rows": dict(W=1 << 12, C2=512, L=32),
-            "cols": dict(C=8192, N=1 << 16)}[probe]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     G.reset_launches()

@@ -153,6 +153,21 @@ def test_encoder_tables_equal(name, wide_files):
             assert a == b, f.name
 
 
+@pytest.mark.parametrize("n,max_probe_len", [(0, 4), (1, 4), (3000, 4), (3000, 1), (20000, 16)])
+def test_pair_table_build_equal(n, max_probe_len):
+    """The port's faster pair-table build gives the original's table slot for slot,
+    ids past 16 bits and capacities grown for the probe bound included."""
+    rng = np.random.default_rng(n + max_probe_len)
+    keys = rng.integers(0, 1 << 17, (n, 2))
+    vals = rng.integers(0, 1 << 20, (n, 2))
+    pairs = {(int(a), int(b)): (int(r), int(m)) for (a, b), (r, m) in zip(keys, vals)}
+    want = J_tables.build_pair_table(pairs, max_probe_len)
+    got = P_tables.build_pair_table(pairs, max_probe_len)
+    for g in dataclasses.fields(want):
+        x, y = getattr(want, g.name), getattr(got, g.name)
+        assert (np.array_equal(x, y) and x.dtype == y.dtype if isinstance(x, np.ndarray) else x == y), g.name
+
+
 # ------------------------------------------------ pretokenize, oracle
 
 
@@ -345,8 +360,11 @@ def test_engine_constants_equal():
 
 
 # the functions whose copies differ on purpose: the trainers' mesh=
-# branch (not ported) and the native loader's docstring
-DIFFER = {"bpe_train", "bbpe_train"}
+# branch (not ported), the native loader's docstring, and the pair-table
+# build, which hashes once per build rather than once per pair and
+# capacity (test_encoder_tables_equal and test_pair_table_build_equal
+# hold its tables equal to the original's)
+DIFFER = {"bpe_train", "bbpe_train", "build_pair_table"}
 MODULE_PAIRS = [
     ("utils/logging.py", "utils.logging"), ("utils/mem.py", "utils.mem"),
     ("bytemaps.py", "bytemaps"), ("pretokenize.py", "pretokenize"),

@@ -134,12 +134,80 @@ def test_compact_output_matches_jax(u16_out):
     assert np.array_equal(got.view(np.uint16) if u16_out else got, want)
 
 
-@pytest.mark.parametrize("name", ["small", "big-merges"])
+def _long_chain_ctx():
+    """The vocabulary of tests/test_adversarial_vocabs.py::
+    test_very_long_tokens, built with the port's classes: GPT-2-spelled
+    byte seeds and the prefix chains of b"a" * 80 and b"b" * 600."""
+    from hutoken_tpu_torch.bytemaps import gpt2_bytes_to_unicode, gpt2_special_chars_table
+    from hutoken_tpu_torch.context import TokenizerContext
+    from hutoken_tpu_torch.formats import Vocab
+
+    b2u = gpt2_bytes_to_unicode()
+
+    def spell(raw):
+        return "".join(b2u[b] for b in raw).encode("utf-8")
+
+    str2id = {spell(bytes([b])): b for b in range(256)}
+    nid = 300
+    for base in (b"a" * 80, b"b" * 600):
+        for ln in range(2, len(base) + 1):
+            str2id[spell(base[:ln])] = nid
+            nid += 1
+    vocab = Vocab(str2id=str2id, id2str={v: k for k, v in str2id.items()},
+                  size=max(str2id.values()) + 1)
+    sc = {k: v.encode("utf-8") for k, v in gpt2_special_chars_table().items()}
+    return TokenizerContext(vocab=vocab, special_chars=sc, is_byte_encoder=True)
+
+
+def _capped_reference(pairs, id2str, cap):
+    """The JAX package's build_minsuper over the pairs spelled in at most
+    ``cap`` bytes, and whether that left any pair out."""
+    short = {p: v for p, v in pairs.items() if len(id2str[p[0]] + id2str[p[1]]) <= cap}
+    return PM.build_minsuper(short, id2str), len(short) < len(pairs)
+
+
+@pytest.mark.parametrize("name", ["small", "big-vocab", "big-merges", "long-chains"])
 def test_build_minsuper_matches_reference(name):
-    ctx, enc = tp.load(name)
-    want = PM.build_minsuper(enc.pairs, ctx.vocab.id2str)
-    got = build_minsuper(enc.pairs, ctx.vocab.id2str)
-    assert want is not None and np.array_equal(got, want)
+    """Exact against the reference on the pairs that can form inside a
+    word the kernels take (spelled in at most the cap), and against the
+    full reference where a fixture has no longer spelling; ranks of the
+    pairs left out keep 0xFFFF."""
+    from hutoken_tpu_torch.tables import build_encoder_tables, minsuper_spelling_cap
+
+    if name == "long-chains":
+        ctx = _long_chain_ctx()
+        enc = build_encoder_tables(ctx)
+    else:
+        ctx, enc = tp.load(name)
+    id2str = ctx.vocab.id2str
+    cap = minsuper_spelling_cap(enc.byte_seed_ids, id2str)
+    assert cap == 64  # 32 bytes, each a 1- or 2-byte GPT-2 character
+    got = build_minsuper(enc.pairs, id2str, cap)
+    want, cut = _capped_reference(enc.pairs, id2str, cap)
+    # the string-path fixture holds pairs spelled in more than 64 bytes
+    assert want is not None and cut == (name in ("big-vocab", "long-chains"))
+    assert np.array_equal(got[: len(want)], want) and (got[len(want):] == 0xFFFF).all()
+    if not cut:
+        assert np.array_equal(got, PM.build_minsuper(enc.pairs, id2str))
+    assert np.array_equal(device_tables(enc, ctx, "cpu").minsuper.numpy(), got)
+
+
+def test_device_tables_build_fast_on_long_token_chains():
+    """The witness of the minutes-long build: device_tables on the
+    600-byte prefix chain's vocabulary (about 180k pairs) in under 10 s on
+    the CPU; without the spelling cap its bound alone took about 15
+    minutes."""
+    import time
+
+    from hutoken_tpu_torch.tables import build_encoder_tables
+
+    ctx = _long_chain_ctx()
+    enc = build_encoder_tables(ctx)
+    assert len(enc.pairs) > 150_000
+    t0 = time.perf_counter()
+    tab = device_tables(enc, ctx, "cpu")
+    assert time.perf_counter() - t0 < 10.0
+    assert tab.minsuper is not None and not tab.wide
 
 
 def _wide_enc(pairs):
@@ -183,8 +251,15 @@ def test_interleaved_slots_equal_the_packed_arrays(name):
     want_ms = np.zeros(real.shape[0], dtype=np.int32)
     if tab.minsuper is not None:
         want_ms[real] = tab.minsuper.numpy()[enc.pair_table.rank[real]]
-        ms = PM.build_minsuper(enc.pairs, ctx.vocab.id2str)
-        assert np.array_equal(slots[real, 2], np.asarray(ms)[enc.pair_table.rank[real]])
+        # the reference over the pairs that can form inside a kernel word
+        from hutoken_tpu_torch.tables import minsuper_spelling_cap
+
+        id2str = ctx.vocab.id2str
+        short, _cut = _capped_reference(enc.pairs, id2str,
+                                        minsuper_spelling_cap(enc.byte_seed_ids, id2str))
+        ms = np.full(tab.minsuper.shape[0], 0xFFFF, dtype=np.int32)
+        ms[: len(short)] = short
+        assert np.array_equal(slots[real, 2], ms[enc.pair_table.rank[real]])
     else:
         assert name == "charmode"  # no byte seeds: single-merge rounds
     assert np.array_equal(slots[:, 2], want_ms)
