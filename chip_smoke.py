@@ -29,11 +29,16 @@ own:
    table's slots as the plain run probes them;
 4. gather probe: ``hutoken_tpu_torch.profile_gather`` at every shape of
    the three TPU gather-profiling scripts and at its edge shapes (ragged
-   counts, views at a 4-byte offset, ``gather_cols`` tables of 4,096,
-   6,144, 14,000 and 16,384 rows and of width 100), each gather kernel
-   equal to its twin (tolerance 0), kernel, twin and one-PyTorch-call
-   times, and the
-   kernel's time under a cold L2, against which its bound is read;
+   counts, views at a 4-byte offset, ``gather_two_level`` on 2^22
+   indices into tables in and past L2, ``gather_rows`` on rows of 5 and 33 indices, ``gather_cols``
+   tables of 4,096 rows, at the slab route's crossover and one row past
+   it, of 6,144, 14,000 and 16,384 rows and of width 100), each gather
+   kernel equal to its twin (tolerance 0) and each ``gather_cols`` shape
+   on its route (the slab up to ``SLAB_MAX_ROWS`` table rows, else L2);
+   an empty launch's time, kernel, twin and one-PyTorch-call times,
+   ``gather_cols`` / ``torch.gather`` at every ``cols`` shape, and the
+   kernel's time under a cold L2, against which its bound and its
+   32-byte-sector bound are read (no check fails on a time);
 5. main path: the facade's ``initialize`` + ``batch_encode`` on the
    committed 23,096-id fixture (merges.txt and string-path configs)
    over a 24 MB Zipf corpus and an 8 MB high-entropy corpus.  Under
@@ -619,15 +624,30 @@ def wide_main_path(device: str, zipf: list[str], unique: list[str], label: str,
 
 def gather_probe(device: str, label: str) -> list[dict]:
     """Phase 4: the gather probe at every shape of the three scripts, its
-    kernels' counts zeroed right before and read right after.  Returns
-    one kernels-line entry per TPU kernel: the worst error over its
-    shapes, the times at the largest shape of its Pallas loop, and the
+    kernels' counts zeroed right before and read right after.  Prints an
+    empty launch's time and ``gather_cols`` / ``torch.gather`` at every
+    ``cols`` shape, and checks which route each ``cols`` shape took.
+    Returns one kernels-line entry per TPU kernel: the worst error over
+    its shapes, the times at the largest shape of its Pallas loop, and the
     share of its bound from the time under a cold L2."""
     from hutoken_tpu_torch import profile_gather as PG
     from hutoken_tpu_torch.ops import gather as G
 
+    empty_ms = PG.empty_launch_ms()
+    print(f"[{label}] empty launch (torch.cuda._sleep(0)) {empty_ms:.4f} ms")
     G.reset_launches()
     rows = PG.run(device, timer=PG.cuda_time, label=label)
+    for r in rows:
+        if r["probe"] != "cols":
+            continue
+        dims = dict(kv.split("=") for kv in r["case"].split())
+        slab = (int(dims.get("K", G.LANES)) % 4 == 0 and not int(dims.get("off", 0))
+                and int(dims["C"]) <= G.SLAB_MAX_ROWS)
+        check(r["route"] == ("slab" if slab else "l2"),
+              f"gather_cols {r['case']} took the {r['route']} route")
+        print(f"[{label}] gather_cols {r['case']:20s} route {r['route']:4s}: "
+              f"{r['ms']:.4f} ms / torch.gather {r['library_ms']:.4f} ms = "
+              f"{r['ms'] / r['library_ms']:.3f}")
     entries = []
     for probe, (kernel, mode, replaces) in PG.KERNELS.items():
         launches = G.gather_1d.launches_by_mode[mode] if mode else getattr(G, kernel).launches
@@ -647,15 +667,18 @@ def gather_probe(device: str, label: str) -> list[dict]:
             "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"],
             "bound_by": "bytes",
+            "sector_bound_ms": main["sector_bound_ms"],
             "library_ms": main["library_ms"],
             "cold_ms": main["cold_ms"],
             "share": main["bound_ms"] / main["cold_ms"],
+            "empty_launch_ms": empty_ms,
             "shape": main["case"],
             "ms_by_shape": {r["case"]: r["ms"] for r in mine},
             "cold_ms_by_shape": {r["case"]: r["cold_ms"] for r in mine},
             "plain_ms_by_shape": {r["case"]: r["plain_ms"] for r in mine},
             "library_ms_by_shape": {r["case"]: r["library_ms"] for r in mine},
             "bound_ms_by_shape": {r["case"]: r["bound_ms"] for r in mine},
+            "sector_bound_ms_by_shape": {r["case"]: r["sector_bound_ms"] for r in mine},
         }
         if mode:
             entry["variant"] = mode

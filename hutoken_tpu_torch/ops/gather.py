@@ -11,8 +11,8 @@ hutoken_tpu_torch.profile_gather`` runs them at the scripts' shapes.
 Each entry point launches its kernel for CUDA tensors and runs its twin
 only for CPU tensors: there is no fallback from one to the other.  The
 launch plans of the redesigned kernels (:func:`gather_1d_plan`,
-:func:`gather_cols_plan`) are plain functions passed to the C entry
-points, so that the CPU tests can check them.
+:func:`gather_rows_plan`, :func:`gather_cols_plan`) are plain functions
+passed to the C entry points, so that the CPU tests can check them.
 Indices must be in range, as the TPU kernels assume; the kernels do not
 check them.
 """
@@ -22,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -30,11 +31,16 @@ from .build import build_library
 LANES = 128  # the TPU's lane width, which fixes the two-level layout
 # The launch geometry of the planned kernels, which csrc/gather.cu takes
 # from the plans and keeps no copy of.
-THREADS = 256  # gather_1d's block
+THREADS = 256  # the block of gather_1d and gather_rows
 SLAB_THREADS = 512  # gather_cols' slab block: one block per SM
-TMA_WIDTHS = (32, 16, 8, 4)  # gather_cols' slab widths, widest first
+TMA_WIDTHS = (32, 16, 8)  # gather_cols' slab widths, widest first
 BOX_ROWS = 256  # table rows of a TMA box (at most 256)
 BAR_BYTES = 16  # the mbarrier's room in a block's shared memory
+# gather_cols takes the slab route up to this many table rows and the L2
+# route past it: the crossover of the two, measured on an H100 (gather.cu)
+SLAB_MAX_ROWS = 5632
+L2_THREADS = 256  # gather_cols' L2 route: at most a block of this many threads per index row
+L2_MAX_BLOCKS = 1 << 20  # ... and at most this many blocks, striding over the rows
 
 
 def build() -> str:
@@ -47,16 +53,16 @@ def build() -> str:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     p, i64 = ctypes.c_void_p, ctypes.c_int64
-    i32 = ctypes.c_int
-    lib.ht_gather_smem_limit.restype = ctypes.c_int
-    lib.ht_gather_smem_limit.argtypes = []
+    i32, u32 = ctypes.c_int, ctypes.c_uint32
+    for name in ("ht_gather_smem_limit", "ht_gather_rows_vectors"):
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = []
     for name, args in (
         ("ht_gather_1d_blocks_per_sm", [i32, i32, i64, ctypes.POINTER(ctypes.c_int)]),
         ("ht_gather_1d", [p, i64, i32, i32, i32, p, i64, i32, i32, i32, i32, i64, i64, p, p]),
         ("ht_gather_two_level", [p, p, i64, p, p]),
-        ("ht_gather_rows", [p, i64, i64, p, i64, p, p]),
-        ("ht_gather_cols", [p, i64, i64, p, i64, i32, i32, i32, i32, i32, i32, i32, i64, i64,
-                            p, p]),
+        ("ht_gather_rows", [p, i64, p, i64, i32, i32, i32, i64, i64, i64, u32, i32, p, p]),
+        ("ht_gather_cols", [p, i64, i64, p, i64, i32, i32, i32, i32, i32, i32, i64, i64, p, p]),
     ):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
@@ -163,20 +169,89 @@ def gather_1d_plan(n: int, table_len: int, smem: bool, idx_addr: int, table_addr
 
 
 @dataclass(frozen=True)
+class RowDivider:
+    """How :func:`gather_rows`' kernel finds the row ``i // L`` of flat
+    lookup ``i``: with ``magic`` > 0 (every ``i`` < 2^31), the 32-bit
+    multiply-high division ``(umulhi(i, magic) + i) >> shift``; else a
+    64-bit division."""
+
+    L: int
+    magic: int
+    shift: int
+
+    def __call__(self, i: int) -> int:
+        """``i // L`` by the kernel's arithmetic (``RowOf`` in gather.cu)."""
+        if self.magic:
+            if not 0 <= i < 1 << 31:
+                raise ValueError(f"the multiply-high division takes i < 2^31, got {i}")
+            t = (i * self.magic) >> 32  # __umulhi
+            return ((t + i) & 0xFFFFFFFF) >> self.shift
+        return i // self.L
+
+
+def row_divider(L: int, n: int) -> RowDivider:
+    """The row divider of ``n`` flat lookups in rows of ``L`` (1 <= L <
+    2^31): the multiply-high division while ``n`` <= 2^31, exact for every
+    dividend below 2^31 (``s`` the least with ``2^s >= L``, ``magic =
+    2^32 (2^s - L) // L + 1``; 1 where L is a power of two, which makes it
+    a shift), a 64-bit division past that."""
+    if n > 1 << 31:
+        return RowDivider(L, 0, 0)
+    s = (L - 1).bit_length()
+    return RowDivider(L, ((1 << 32) * ((1 << s) - L)) // L + 1, s)
+
+
+@dataclass(frozen=True)
+class GatherRowsPlan:
+    """How :func:`gather_rows`' kernel covers ``[W, L]`` indices taken as
+    ``n = W * L`` flat lookups, with :func:`gather_1d`'s loop: block 0
+    looks up indices ``[0, head)`` and ``[head + 4 * vectors, n)`` one by
+    one; block ``b`` of ``blocks`` blocks of ``threads`` threads the
+    16-byte vectors ``[b * per_block, (b + 1) * per_block)`` of the
+    ``vectors`` that start at index ``head``, through ``smem_bytes`` of
+    shared memory (each warp's ``row_vectors`` x 128 int32); ``row`` finds
+    each lookup's row of ``R``."""
+
+    head: int
+    vectors: int
+    blocks: int
+    threads: int
+    per_block: int
+    smem_bytes: int
+    row: RowDivider
+
+
+def gather_rows_plan(W: int, L: int, idx_addr: int, row_vectors: int) -> GatherRowsPlan:
+    """The launch plan of :func:`gather_rows` for ``[W, L]`` indices at
+    ``idx_addr`` (the output at the same address mod 16), for a kernel
+    whose threads gather ``row_vectors`` 16-byte vectors at once: the
+    scalar head and tail that align the vectors, a block per ``THREADS x
+    row_vectors`` vectors (one pass of its threads), however many waves
+    that takes, and :func:`row_divider`.  A wave-bound grid, whose blocks
+    each take a long run of rows, spread each wave's random reads over
+    all of ``R`` and ran slower on the H100 (gather.cu)."""
+    n = W * L
+    head = min(_lead(idx_addr), n)
+    vectors = (n - head) // 4
+    per_block = THREADS * row_vectors
+    return GatherRowsPlan(head, vectors, max(1, -(-vectors // per_block)), THREADS, per_block,
+                          THREADS // 32 * row_vectors * LANES * 4, row_divider(L, n))
+
+
+@dataclass(frozen=True)
 class GatherColsPlan:
     """How :func:`gather_cols`' kernel covers a ``[rows, width]`` index
     array.  Slab route (``k`` > 0): block ``(x, s)`` of a ``row_splits``
     x ``slabs`` grid of ``threads``-thread blocks gathers table columns
     ``[s * k, min((s + 1) * k, width))`` for index rows ``[x * rows_per,
     min((x + 1) * rows_per, rows))`` from a slab of those columns, which
-    arrives by TMA in ``boxes`` boxes of ``box_rows`` table rows, each
-    loaded once per cluster of ``cluster`` blocks (along x) and
-    multicast to all of them; ``smem_bytes`` of shared memory hold the
-    slab and then the mbarrier.  L2 route (``k`` 0): a block per index
-    row, no shared memory."""
+    arrives by TMA in ``boxes`` boxes of ``box_rows`` table rows;
+    ``smem_bytes`` of shared memory hold the slab and then the mbarrier.
+    L2 route (``k`` 0): block ``x`` of ``row_splits`` takes index rows
+    ``x, x + row_splits, ...``, thread ``t`` of ``threads`` the columns
+    ``t, t + threads, ...``; no shared memory."""
 
     k: int
-    cluster: int
     boxes: int
     box_rows: int
     slabs: int
@@ -186,7 +261,34 @@ class GatherColsPlan:
     smem_bytes: int
 
 
-L2_ROUTE = GatherColsPlan(0, 1, 0, 0, 0, 0, 0, 0, 0)
+def l2_route(width: int, rows: int) -> GatherColsPlan:
+    """:func:`gather_cols`' L2 route for ``[rows, width]`` indices: a
+    block per index row (at most ``L2_MAX_BLOCKS``), a thread per column
+    (at most ``L2_THREADS``, a warp multiple)."""
+    threads = min(L2_THREADS, max(32, -(-width // 32) * 32))
+    return GatherColsPlan(0, 0, 0, 1, max(1, min(rows, L2_MAX_BLOCKS)), threads, 0, 0)
+
+
+def slab_plan(table_rows: int, width: int, rows: int, sms: int,
+              smem_limit: int) -> Optional[GatherColsPlan]:
+    """:func:`gather_cols`' slab route for a ``[table_rows, width]``
+    table (width a multiple of 4) and ``[rows, width]`` indices: the
+    widest slab of ``TMA_WIDTHS`` whose padded table columns fit
+    ``smem_limit`` (a wider slab reads fewer, fuller index and output
+    rows per lookup), about one block per SM over all slabs; None if no
+    slab fits."""
+    boxes = -(-table_rows // BOX_ROWS)
+    fits = [k for k in TMA_WIDTHS if boxes * BOX_ROWS * k * 4 + BAR_BYTES <= smem_limit]
+    if not fits:
+        return None
+    k = min(fits[0], width)
+    slabs = -(-width // k)
+    rows = max(rows, 1)
+    rows_per = -(-rows // max(1, min(rows, sms // slabs)))
+    if rows_per * k >= 1 << 31:
+        raise ValueError(f"gather_cols: {rows_per} index rows a block do not fit 32-bit counts")
+    return GatherColsPlan(k, boxes, BOX_ROWS, slabs, -(-rows // rows_per), SLAB_THREADS, rows_per,
+                          boxes * BOX_ROWS * k * 4 + BAR_BYTES)
 
 
 def gather_cols_plan(table_rows: int, width: int, rows: int, aligned: bool,
@@ -197,32 +299,14 @@ def gather_cols_plan(table_rows: int, width: int, rows: int, aligned: bool,
     ``sms`` SMs whose blocks may take ``smem_limit`` bytes of shared
     memory.
 
-    The slab route takes aligned tensors of a width that is a multiple of
-    4: the widest slab of ``TMA_WIDTHS`` whose padded table columns fit
-    (a wider slab reads fewer, fuller index and output rows per lookup),
-    shared by a cluster of 2 blocks where it is 4 columns wide (the
-    staging then dominates, and multicast halves its L2 reads), about one
-    block per SM over all slabs.  Every other input, and a table too long
-    for a slab of 4 columns, takes the L2 route."""
-    if not aligned or width % 4:
-        return L2_ROUTE
-    boxes = -(-table_rows // BOX_ROWS)
-    fits = [k for k in TMA_WIDTHS if boxes * BOX_ROWS * k * 4 + BAR_BYTES <= smem_limit]
-    if not fits:
-        return L2_ROUTE
-    k = min(fits[0], width)
-    cluster = 2 if fits[0] == 4 else 1
-    slabs = -(-width // k)
-    rows = max(rows, 1)
-    rows_per = -(-rows // max(1, min(rows, sms // slabs)))
-    # none without rows but those a cluster pads out (they stage their
-    # share of the slab all the same)
-    row_splits = -(-rows // rows_per)
-    row_splits = -(-row_splits // cluster) * cluster
-    if rows_per * k >= 1 << 31:
-        raise ValueError(f"gather_cols: {rows_per} index rows a block do not fit 32-bit counts")
-    return GatherColsPlan(k, cluster, boxes, BOX_ROWS, slabs, row_splits, SLAB_THREADS, rows_per,
-                          boxes * BOX_ROWS * k * 4 + BAR_BYTES)
+    :func:`slab_plan` for aligned tensors of a width that is a multiple
+    of 4 and a table of at most ``SLAB_MAX_ROWS`` rows whose slab fits;
+    :func:`l2_route` for every other input."""
+    if aligned and width % 4 == 0 and table_rows <= SLAB_MAX_ROWS:
+        plan = slab_plan(table_rows, width, rows, sms, smem_limit)
+        if plan is not None:
+            return plan
+    return l2_route(width, rows)
 
 
 def _check(name: str, *pairs) -> torch.device:
@@ -347,8 +431,9 @@ def gather_rows(R: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``out[w, j] = R[w, idx[w, j]]`` for ``R`` ``[W, C2]`` and ``idx``
     ``[W, L]`` (``kernel`` of ``profile_gather3.py``).
 
-    CUDA: the kernel, counted in ``gather_rows.launches``; CPU:
-    :func:`gather_rows_plain`.
+    CUDA: the kernel with :func:`gather_rows_plan`'s plan, counted in
+    ``gather_rows.launches``; its output starts at the indices' address
+    mod 16, as :func:`gather_1d`'s does.  CPU: :func:`gather_rows_plain`.
     """
     dev = _check("gather_rows", ("R", R), ("idx", idx))
     if R.dim() != 2 or idx.dim() != 2 or R.shape[0] != idx.shape[0]:
@@ -357,12 +442,15 @@ def gather_rows(R: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         )
     if dev.type == "cpu":
         return gather_rows_plain(R, idx)
-    out = torch.empty(idx.shape, dtype=torch.int32, device=dev)
+    R, idx = R.contiguous(), idx.contiguous()
+    out = _same_alignment(idx, dev)
     if idx.numel() == 0:
         return out
-    R, idx = R.contiguous(), idx.contiguous()
-    _launch("gather_rows", _library().ht_gather_rows, dev, R.data_ptr(), R.shape[0],
-            R.shape[1], idx.data_ptr(), idx.shape[1], out.data_ptr())
+    plan = gather_rows_plan(*idx.shape, idx.data_ptr(), _library().ht_gather_rows_vectors())
+    row = plan.row
+    _launch("gather_rows", _library().ht_gather_rows, dev, R.data_ptr(), R.shape[1],
+            idx.data_ptr(), idx.numel(), plan.head, plan.blocks, plan.threads, plan.per_block,
+            plan.smem_bytes, row.L, row.magic, row.shift, out.data_ptr())
     gather_rows.launches += 1
     return out
 
@@ -380,7 +468,9 @@ def gather_cols(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     ``idx`` ``[M, K]`` (``kernel0`` of ``profile_gather3.py``, K = 128).
 
     CUDA: the kernel with :func:`gather_cols_plan`'s plan, counted in
-    ``gather_cols.launches``; CPU: :func:`gather_cols_plain`.
+    ``gather_cols.launches`` and by route in
+    ``gather_cols.launches_by_route["slab" | "l2"]``; CPU:
+    :func:`gather_cols_plain`.
     """
     dev = _check("gather_cols", ("tbl", tbl), ("idx", idx))
     if tbl.dim() != 2 or idx.dim() != 2 or tbl.shape[1] != idx.shape[1]:
@@ -398,14 +488,16 @@ def gather_cols(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     plan = gather_cols_plan(tbl.shape[0], tbl.shape[1], idx.shape[0], aligned,
                             _sm_count(di), _smem_limit(di))
     _launch("gather_cols", _library().ht_gather_cols, dev, tbl.data_ptr(), tbl.shape[0],
-            tbl.shape[1], idx.data_ptr(), idx.shape[0], plan.k, plan.cluster, plan.boxes,
-            plan.box_rows, plan.slabs, plan.row_splits, plan.threads, plan.rows_per,
-            plan.smem_bytes, out.data_ptr())
+            tbl.shape[1], idx.data_ptr(), idx.shape[0], plan.k, plan.boxes, plan.box_rows,
+            plan.slabs, plan.row_splits, plan.threads, plan.rows_per, plan.smem_bytes,
+            out.data_ptr())
     gather_cols.launches += 1
+    gather_cols.launches_by_route["slab" if plan.k else "l2"] += 1
     return out
 
 
 gather_cols.launches = 0
+gather_cols.launches_by_route = {"slab": 0, "l2": 0}
 
 
 def gather_cols_plain(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -417,3 +509,4 @@ def reset_launches() -> None:
     """Set every gather kernel's launch count to 0."""
     gather_two_level.launches = gather_rows.launches = gather_cols.launches = 0
     gather_1d.launches_by_mode.update(l2=0, smem=0)
+    gather_cols.launches_by_route.update(slab=0, l2=0)

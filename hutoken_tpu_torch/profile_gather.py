@@ -7,20 +7,23 @@ kernels of ``ops/gather.py`` and their plain PyTorch twins.
     python -m hutoken_tpu_torch.profile_gather
 
 For each shape, and for the edge shapes of :func:`edge_cases` (ragged
-counts, views at an offset, tables past the shared-memory slab), it
-checks kernel == twin exactly (and, for the two-level
+counts, views at an offset, tables on either side of ``gather_cols``'
+crossover), it checks kernel == twin exactly (and, for the two-level
 gather, the script's composed semantics and whether it happens to equal
 a true gather) and prints both times with CUDA events and both rates in
 M lookups/s, beside the shape's bound (the bytes it must move at the
-card's memory rate) and the time of one PyTorch call computing the same
-function on indices prepared beforehand, a yardstick only.  Calls run
-back to back, so a shape whose bytes fit the L2 cache may run faster
+card's memory rate), its sector bound (the same with the table read in
+whole 32-byte sectors) and the time of one PyTorch call computing the
+same function on indices prepared beforehand, a yardstick only.  Calls
+run back to back, so a shape whose bytes fit the L2 cache may run faster
 than its bound; the kernel is also timed with L2 flushed before each
-call, and its share of the bound is taken from that cold time.  The scripts' XLA-only sections (``profile_gather3.py``
-sections 1 and 2) become rows whose plain time is the point; the kernel
-of the same function runs beside them.  Inputs are drawn on the device
-from a seeded generator.  Without a CUDA device it exits with an error:
-a CPU run measures nothing.
+call, and its share of the bound is taken from that cold time.  An
+empty launch's time prints first: no call can take less.  The scripts'
+XLA-only sections (``profile_gather3.py`` sections 1 and 2) become rows
+whose plain time is the point; the kernel of the same function runs
+beside them.  Inputs are drawn on the device from a seeded generator.
+Without a CUDA device it exits with an error: a CPU run measures
+nothing.
 """
 
 from __future__ import annotations
@@ -117,11 +120,16 @@ def edge_cases() -> list[Case]:
     that is no multiple of 4 or 128 (ragged N), a table and indices that
     are views at a 4-byte offset (``off``: they start ``off`` int32 into
     a larger tensor, so not on a 16-byte boundary), a table length that is
-    no multiple of 4, ``gather_cols`` with tables of 4,096 and 6,144 rows
-    (slabs of 8 columns), 14,000 rows (a slab of 4 columns, 224,000
-    bytes), 16,384 rows (no slab fits: the L2 route), a width of 100 (the
-    last slab 4 columns wide) and an index view at an offset (the L2
-    route)."""
+    no multiple of 4, ``gather_two_level`` on 2^22 indices into a 2^21
+    table (launches no longer dominate) and into a 2^25 table (128 MB,
+    past the L2 cache) and on an index view at an offset,
+    ``gather_rows`` with rows of 5 and 33 indices (no power of two), an
+    odd row count and index views at an offset, ``gather_cols`` with
+    tables of 4,096 rows (an 8-column slab), ``SLAB_MAX_ROWS`` (the last
+    table of the slab route) and one row more, 6,144 rows (where the two
+    routes ran level), 14,000 and 16,384 rows (the L2 route), a width of
+    100 (the last slab 4 columns wide) and an index view at an offset
+    (the L2 route)."""
     edge = "edge"
     return [
         Case("take", edge, dict(C=8192, N=131073), pallas=False),
@@ -129,7 +137,15 @@ def edge_cases() -> list[Case]:
         Case("take", edge, dict(C=8192, N=131072, off=1), pallas=False),
         Case("taa", edge, dict(C=8192, N=131072, off=1), pallas=False),
         Case("taa", edge, dict(C=8191, N=1001, off=3), pallas=False),
+        Case("two_level", edge, dict(C=1 << 21, N=1 << 22), pallas=False),
+        Case("two_level", edge, dict(C=1 << 25, N=1 << 22), pallas=False),
+        Case("two_level", edge, dict(C=8192, N=131072, off=1), pallas=False),
+        Case("rows", edge, dict(W=(1 << 17) - 1, C2=512, L=5), pallas=False),
+        Case("rows", edge, dict(W=(1 << 15) + 1, C2=128, L=33, off=1), pallas=False),
+        Case("rows", edge, dict(W=(1 << 17) - 1, C2=512, L=32, off=3), pallas=False),
         Case("cols", edge, dict(C=4096, N=1 << 20), pallas=False),
+        Case("cols", edge, dict(C=G.SLAB_MAX_ROWS, N=1 << 20), pallas=False),
+        Case("cols", edge, dict(C=G.SLAB_MAX_ROWS + 1, N=1 << 20), pallas=False),
         Case("cols", edge, dict(C=6144, N=1 << 20), pallas=False),
         Case("cols", edge, dict(C=14000, N=1 << 20), pallas=False),
         Case("cols", edge, dict(C=16384, N=1 << 20), pallas=False),
@@ -194,22 +210,36 @@ def library_call(probe: str, args: tuple) -> Optional[Callable]:
     return None
 
 
-def bound_bytes(probe: str, args: tuple) -> int:
-    """The bytes a call must move: every index read once, every output
-    written once, and each table entry these indices reach read once."""
+def reached(probe: str, args: tuple) -> torch.Tensor:
+    """The flat table entries a call's lookups read, one per lookup."""
     table, idx = args
     idx64 = idx.to(torch.int64)
     if probe in ("take", "taa"):
-        reached = idx64
-    elif probe == "two_level":
+        return idx64.reshape(-1)
+    if probe == "two_level":
         lanes = idx64 & (G.LANES - 1)
-        reached = torch.gather(idx64 >> 7, 1, lanes) * G.LANES + lanes
-    elif probe == "rows":
-        reached = torch.arange(idx64.shape[0], device=idx.device)[:, None] * table.shape[1] + idx64
-    else:  # cols
-        reached = idx64 * table.shape[1] + torch.arange(idx64.shape[1], device=idx.device)
-    entries = int(torch.unique(reached).numel())
-    return 4 * (entries + 2 * idx.numel())
+        return (torch.gather(idx64 >> 7, 1, lanes) * G.LANES + lanes).reshape(-1)
+    if probe == "rows":
+        rows = torch.arange(idx64.shape[0], device=idx.device)[:, None]
+        return (rows * table.shape[1] + idx64).reshape(-1)
+    # cols
+    return (idx64 * table.shape[1] + torch.arange(idx64.shape[1], device=idx.device)).reshape(-1)
+
+
+def bound_bytes(probe: str, args: tuple) -> int:
+    """The bytes a call must move: every index read once, every output
+    written once, and each table entry these indices reach read once."""
+    entries = int(torch.unique(reached(probe, args)).numel())
+    return 4 * (entries + 2 * args[1].numel())
+
+
+def sector_bytes(probe: str, args: tuple) -> int:
+    """The bytes a call must move where the table is read in whole 32-byte
+    sectors, as device memory serves it: every index and output once, and
+    each distinct sector (by address) that the lookups reach."""
+    table, idx = args
+    sectors = torch.unique((table.data_ptr() + 4 * reached(probe, args)) // 32)
+    return 32 * int(sectors.numel()) + 8 * idx.numel()
 
 
 @functools.lru_cache(maxsize=None)
@@ -276,10 +306,15 @@ def run_case(case: Case, device, gen: torch.Generator,
     twin or the composed semantics."""
     args = make_inputs(case, gen, device)
     kernel, twin = kernel_and_twin(case.probe)
+    routes = dict(G.gather_cols.launches_by_route)
     got, want = kernel(*args), twin(*args)
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     row = {"probe": case.probe, "case": case.name, "origin": case.origin,
            "pallas": case.pallas, "lookups": case.lookups, "max_abs_err": err}
+    if case.probe == "cols":
+        # the route the first call took (None where no kernel ran)
+        row["route"] = next((r for r, n in G.gather_cols.launches_by_route.items()
+                             if n > routes[r]), None)
     if err != 0:
         raise RuntimeError(f"{case.probe} {case.name}: kernel differs from its twin by {err}")
     if case.probe == "two_level":
@@ -299,6 +334,7 @@ def run_case(case: Case, device, gen: torch.Generator,
         lib = library_call(case.probe, args)
         row["library_ms"] = timer(lib) if lib is not None else None
         row["bound_ms"] = bound_bytes(case.probe, args) / HBM_BYTES_PER_S * 1e3
+        row["sector_bound_ms"] = sector_bytes(case.probe, args) / HBM_BYTES_PER_S * 1e3
     return row
 
 
@@ -329,12 +365,21 @@ def run(device, cases: Optional[list[Case]] = None, timer: Optional[Callable] = 
                      f"one PyTorch call {'%.4f ms' % lib if lib is not None else 'none'}, "
                      f"kernel under a cold L2 {row['cold_ms']:.4f} ms, "
                      f"bound {row['bound_ms']:.4f} ms (bytes), "
+                     f"sector bound {row['sector_bound_ms']:.4f} ms, "
                      f"share {row['bound_ms'] / row['cold_ms']:.3f} (of the cold time)")
+        if row.get("route"):
+            extra += f" route {row['route']};"
         prefix = f"[{label}] " if label else ""
         print(f"{prefix}gather probe {what:18s} {case.name:24s} ({case.origin}): "
               f"kernel == twin (max_abs_err {row['max_abs_err']}, tolerance 0);{extra} {times}",
               file=out, flush=True)
     return rows
+
+
+def empty_launch_ms(timer: Callable = None) -> float:
+    """The time of an empty launch (``torch.cuda._sleep(0)``) by the same
+    timer: the floor under every time of the probe."""
+    return (timer or cuda_time)(lambda: torch.cuda._sleep(0))
 
 
 def card_label() -> str:
@@ -355,6 +400,7 @@ def main(argv: Optional[list[str]] = None) -> int:
     t0 = time.perf_counter()
     G.build()
     print(f"gather kernels built in {time.perf_counter() - t0:.1f} s")
+    print(f"[{label}] empty launch (torch.cuda._sleep(0)) {empty_launch_ms():.4f} ms")
     run("cuda", timer=cuda_time, label=label)
     return 0
 
