@@ -68,7 +68,19 @@ own:
 7. profile: one more cold run of big-merges / unique on each encode path
    under ``torch.profiler``: the device busy share, the top kernels, no
    ``compact_output`` span on the word pipeline, and the run's wall
-   through ``encode_batch_arrays``.
+   through ``encode_batch_arrays``;
+8. device training (``hutoken_tpu_torch/parallel``, no hand kernel, so
+   no entry in the kernels line), each against the port's host
+   ``bbpe_train_core``: (a) 1 MB and 1,000 merges on ``data_mesh()``,
+   vocab and merge log equal; (b) ``scripts/benchmark_train.py``'s
+   BASELINE, 4 MB and 5,000 merges, warmed on another corpus outside the
+   timed window: merges/s, its first 32 merges equal, and the step's
+   device time under ``torch.profiler``, sort kernels against the rest,
+   at the start and the end of training; (c) four shards on the card
+   (``data_mesh(4)``) on 256 KB and 300 merges, dense and candidate
+   picks, equal; (d) checkpoint every 8 merges to 280, resume to 300,
+   equal to a straight run, on one and four shards; (e) one 32-merge
+   chunk of each path under ``torch.cuda.set_sync_debug_mode("error")``.
 
 The last two lines are the kernel summary and ``{"ok": true, ...}``.
 """
@@ -76,6 +88,7 @@ The last two lines are the kernel summary and ``{"ok": true, ...}``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import sys
@@ -101,6 +114,15 @@ LENGTH_RUNS = 2000  # 32-word runs in the every-length chunk
 HIGH_BYTES = bytes(range(0x20, 0x7F)) + bytes(range(0x80, 0x100))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 FIXTURES = os.path.join(HERE, "tests", "fixtures")
+# phase 8: scripts/benchmark_train.py's BASELINE (4 MB, 5,000 merges) and
+# a 1 MB, 1,000-merge run held to the host core merge for merge
+EXACT_MB, EXACT_MERGES = 1.0, 1000
+FULL_MB, FULL_MERGES = 4.0, 5000
+WARM_MERGES = 256
+PREFIX_MERGES = 32
+SHARDS, SHARD_MB, SHARD_MERGES = 4, 0.256, 300
+SCAN_STEPS = 32  # the trainer's merges per chunk
+PROFILE_CHUNKS = 4
 
 # ------------------------------------------------------------- inputs
 
@@ -809,6 +831,180 @@ def profile_runs(device: str, unique: list[str], label: str) -> None:
     os.environ.pop("HUTOKEN_TPU_RAW", None)
 
 
+# ------------------------------------------------------------- phase 8
+
+
+def train_corpus(mb: float, seed: int) -> bytes:
+    """``scripts/benchmark_train.py``'s training text: the Zipf corpus's
+    documents joined by spaces, cut to ``mb`` MB."""
+    return " ".join(build_corpus(mb + 0.2, seed=seed)).encode()[: int(mb * 1e6)]
+
+
+def merge_log_of(path: str) -> list[tuple[int, int, int]]:
+    with open(path + ".merges", encoding="utf-8") as f:
+        return [tuple(int(x) for x in line.split()) for line in f]
+
+
+def device_train(data: bytes, vocab_size: int, mesh, ckpt: str, every: int = 1 << 30,
+                 resume: bool = False):
+    """The device trainer to ``vocab_size``, checkpointing at ``ckpt``
+    every ``every`` merges and at its end; returns (vocab, merge log,
+    wall seconds)."""
+    import torch
+
+    from hutoken_tpu_torch.parallel.train import distributed_bbpe_train
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vocab = distributed_bbpe_train(data, vocab_size, mesh=mesh, verbose=False, checkpoint_path=ckpt,
+                                   checkpoint_every=every, resume=resume)
+    torch.cuda.synchronize()
+    return vocab, merge_log_of(ckpt), time.perf_counter() - t0
+
+
+def host_train(data: bytes, vocab_size: int):
+    """``bbpe_train_core``: (vocab, merge log, wall seconds)."""
+    from hutoken_tpu_torch.train.bbpe import bbpe_train_core
+
+    log: list = []
+    t0 = time.perf_counter()
+    vocab = bbpe_train_core(data, vocab_size, verbose=False, merge_log=log)
+    return vocab, log, time.perf_counter() - t0
+
+
+def step_split(mesh, data: bytes, vocab_size: int, log, label: str) -> None:
+    """The scan chunk per merge over PROFILE_CHUNKS chunks, at the start
+    of training and after replaying ``log`` (the run's end, trimmed as
+    the trainer trims): its wall, then under ``torch.profiler`` its
+    device time by kernel, sort kernels against the rest, and the device
+    operations (kernels, copies, fills) it runs per merge."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from hutoken_tpu_torch.parallel.mesh import shard_batch
+    from hutoken_tpu_torch.parallel.train import MIN_MERGE_COUNT, make_scan_train_step
+
+    scan, _fused, merge = make_scan_train_step(vocab_size + 1, mesh, MIN_MERGE_COUNT, SCAN_STEPS)
+    steps = PROFILE_CHUNKS * SCAN_STEPS
+
+    def window(ids) -> float:
+        """Wall ms per merge of PROFILE_CHUNKS chunks, each downloaded."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c in range(PROFILE_CHUNKS):
+            _ids, stats = scan(ids, 256 + c * SCAN_STEPS)
+            stats.cpu()
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    ids = shard_batch(mesh, np.frombuffer(data, np.uint8).astype(np.int32))
+    for where, replay in (("start", []), ("end", log)):
+        for id1, id2, new_id in replay:
+            ids = merge(ids, id1, id2, new_id)
+        live = sum(int((s >= 0).sum()) for s in ids)
+        ids = [s[: max(live, 1)] for s in ids]
+        scan(ids, 256)  # warm
+        wall = window(ids)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profiled = window(ids)
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        total = sum(e.self_device_time_total for e in events) / 1e3 / steps
+        sort = sum(e.self_device_time_total for e in events if "sort" in e.key.lower()) / 1e3 / steps
+        ops = sum(e.count for e in events) / steps
+        top = ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / steps:.4f}" for e in
+                        sorted(events, key=lambda e: -e.self_device_time_total)[:8])
+        check(total > 0, f"step split ({where}): device time was traced")
+        print(f"[{label}] train step split at the {where} ({live} live ids, {steps} merges): "
+              f"wall {wall:.4f} ms per merge ({profiled:.4f} under torch.profiler); device "
+              f"{total:.4f} ms per merge = sort {sort:.4f} + rest {total - sort:.4f}, busy share "
+              f"{total / wall:.3f}; {ops:.1f} device ops per merge; top ms per merge: {top}")
+
+
+def no_sync_chunk(mesh, data: bytes, vocab_size: int, what: str) -> None:
+    """(e) One chunk under ``torch.cuda.set_sync_debug_mode("error")``:
+    any host sync inside the 32 steps raises."""
+    import torch
+
+    from hutoken_tpu_torch.parallel.mesh import shard_batch
+    from hutoken_tpu_torch.parallel.train import MIN_MERGE_COUNT, _use_candidates, make_scan_train_step
+
+    K = vocab_size + 1
+    scan, _f, _m = make_scan_train_step(K, mesh, MIN_MERGE_COUNT, SCAN_STEPS,
+                                        use_candidates=_use_candidates(K, mesh.size, len(data)))
+    ids = shard_batch(mesh, np.frombuffer(data, np.uint8).astype(np.int32))
+    scan(ids, 256)  # warm, outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _ids, stats = scan(ids, 256)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    cnts = stats[2].cpu()
+    check(int(cnts[0]) > 1, f"no-sync chunk ({what}) merged")
+    print(f"no-sync chunk ({what}): {SCAN_STEPS} merges enqueued under sync debug mode 'error', "
+          f"no host sync; first counts {cnts[:4].tolist()}")
+
+
+def device_training(label: str) -> None:
+    """Phase 8: the device byte-level trainer, ``bbpe_train(...,
+    mesh=data_mesh())``'s path, against the host ``bbpe_train_core``."""
+    from hutoken_tpu_torch.parallel import data_mesh
+
+    mesh = data_mesh()
+    check(mesh.size == 1 and mesh.devices[0].type == "cuda", f"data_mesh() is one card: {mesh}")
+    with tempfile.TemporaryDirectory(prefix="hutoken-train-") as tmp:
+        ck = functools.partial(os.path.join, tmp)
+
+        # (a) exactness at depth
+        data = train_corpus(EXACT_MB, 0)
+        want, want_log, host_s = host_train(data, 256 + EXACT_MERGES)
+        got, log, dev_s = device_train(data, 256 + EXACT_MERGES, mesh, ck("exact.txt"))
+        check(got == want and log == want_log, "(a) device vocab and merge log == bbpe_train_core")
+        print(f"[{label}] (a) {len(data)} B, {len(log)} merges on one card: vocab and merge log "
+              f"equal to bbpe_train_core; device {len(log) / dev_s:.1f} merges/s ({dev_s:.2f} s), "
+              f"host core {len(want_log) / host_s:.2f} merges/s ({host_s:.1f} s)")
+
+        # (b) full width: the BASELINE config, warmed on another corpus
+        data, warm = train_corpus(FULL_MB, 0), train_corpus(FULL_MB, 1)
+        device_train(warm, 256 + WARM_MERGES, mesh, ck("warm.txt"))
+        got, log, dev_s = device_train(data, 256 + FULL_MERGES, mesh, ck("full.txt"))
+        check(len(got) == 256 + FULL_MERGES, f"(b) the vocab is full: {len(got)}")
+        _want, want_log, _s = host_train(data, 256 + PREFIX_MERGES)
+        check(log[:PREFIX_MERGES] == want_log, f"(b) the first {PREFIX_MERGES} merges == bbpe_train_core")
+        print(f"[{label}] (b) device training {len(data)} B, {len(log)} merges to vocab "
+              f"{len(got)}: {len(log) / dev_s:.2f} merges/s ({dev_s:.3f} s, warmup of {WARM_MERGES} "
+              f"merges on another corpus outside it); first {PREFIX_MERGES} merges equal to bbpe_train_core")
+        step_split(mesh, data, 256 + FULL_MERGES, log, label)
+
+        # (e) no host sync inside a chunk, on the main path
+        no_sync_chunk(mesh, data, 256 + FULL_MERGES, f"1 shard, {len(data)} B")
+
+        # (c) the multi-shard code: four shards on the card, both pick paths
+        shards = data_mesh(SHARDS)
+        check(shards.size == SHARDS and all(d.type == "cuda" for d in shards.devices),
+              f"data_mesh({SHARDS}) places {SHARDS} shards on the card")
+        data = train_corpus(SHARD_MB, 2)
+        want, want_log, host_s = host_train(data, 256 + SHARD_MERGES)
+        for force in ("0", "1"):
+            os.environ["HUTOKEN_TPU_TRAIN_FORCE_CANDIDATES"] = force
+            path = "candidates" if force == "1" else "dense"
+            got, log, dev_s = device_train(data, 256 + SHARD_MERGES, shards, ck(f"shards{force}.txt"))
+            check(got == want and log == want_log, f"(c) {SHARDS} shards, {path}: == bbpe_train_core")
+            print(f"[{label}] (c) {SHARDS} shards on one card, {path} pick, {len(data)} B, {len(log)} "
+                  f"merges: vocab and merge log equal to bbpe_train_core; {len(log) / dev_s:.1f} merges/s")
+            no_sync_chunk(shards, data, 256 + SHARD_MERGES, f"{SHARDS} shards, {path}")
+        os.environ.pop("HUTOKEN_TPU_TRAIN_FORCE_CANDIDATES")
+
+        # (d) checkpoint and resume, as tests/test_checkpoint.py
+        for m in (mesh, shards):
+            straight, straight_log, _s = device_train(data, 300, m, ck(f"straight{m.size}.txt"))
+            device_train(data, 280, m, ck(f"resume{m.size}.txt"), every=8)
+            resumed, log, _s = device_train(data, 300, m, ck(f"resume{m.size}.txt"), resume=True)
+            check(resumed == straight and log == straight_log, f"(d) resumed == straight run ({m.size} shards)")
+            print(f"(d) {m.size} shard(s): trained to 280 with checkpoints every 8 merges, resumed to "
+                  f"300: equal to a straight run ({len(log)} merges)")
+
+
 def merge_entry(name, source, replaces, launches, per_run, res, key, by) -> dict:
     """A kernels-line entry of a merge kernel: ``res["by"][key]`` is the
     row its ms, plain_ms and bound come from; ``by`` names the other
@@ -905,6 +1101,11 @@ def main() -> int:
 
     # 7. profile
     profile_runs(device, unique, label)
+
+    # 8. device training
+    t0 = time.perf_counter()
+    device_training(label)
+    print(f"device training took {time.perf_counter() - t0:.1f} s")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "hutoken_tpu"))
     check(not loaded, f"neither jax nor the JAX package was loaded: {loaded[:5]}")

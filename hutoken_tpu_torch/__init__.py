@@ -23,7 +23,12 @@ device (``HUTOKEN_TPU_DECODE`` may still send it to its host path);
 under ``auto`` ``batch_decode`` goes there only with
 ``HUTOKEN_TPU_DECODE=device``, since the engine's default decode is the
 native host decode that ``auto`` runs anyway and building the engine
-needs the device.  Everything else decodes on the host.  The package
+needs the device.  Everything else decodes on the host.
+
+The trainers run on the host, except ``bbpe_train(..., mesh=)``: with
+``mesh=parallel.data_mesh()`` its merge loop runs on the card
+(``parallel/train.py``), and the vocab is the host's.  ``bpe_train``'s
+``mesh=`` raises ``NotImplementedError``.  The package
 imports nothing of JAX and nothing of the JAX package ``hutoken_tpu``:
 it keeps its own copies of the host modules it needs.
 """
@@ -259,8 +264,8 @@ def batch_decode(tokens: list[list[int]], num_threads: int = 1) -> list[str]:
 
 def bpe_train(data: str, vocab_size: int, vocab_file_name: str, **kwargs: Any):
     """Train a BPE vocab on the host (``strict=False`` disables the
-    reference-bug emulation, see ``train/bpe.py``; ``mesh=`` raises
-    ``NotImplementedError``)."""
+    reference-bug emulation, see ``train/bpe.py``; ``mesh=``, the string
+    trainer on a device mesh, raises ``NotImplementedError``)."""
     from .train.bpe import bpe_train as _bpe_train
 
     _validate_train_args(vocab_size, vocab_file_name)
@@ -268,8 +273,10 @@ def bpe_train(data: str, vocab_size: int, vocab_file_name: str, **kwargs: Any):
 
 
 def bbpe_train(data: str, vocab_size: int, vocab_file_name: str, **kwargs: Any):
-    """Train a byte-level BPE vocab on the host (``mesh=`` raises
-    ``NotImplementedError``)."""
+    """Train a byte-level BPE vocab: on the host, or with
+    ``mesh=parallel.data_mesh()`` on the card (``parallel/train.py``;
+    ``data_mesh(n, device="cpu")`` shards it on the CPU).  Both write
+    the same vocab file."""
     from .train.bbpe import bbpe_train as _bbpe_train
 
     _validate_train_args(vocab_size, vocab_file_name)

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .common import MESH_MSG, count_pairs, first_to_reach_winner, left_to_right_merge_mask, save_vocab
+from .common import count_pairs, first_to_reach_winner, left_to_right_merge_mask, save_vocab
 
 
 def bbpe_train_core(
@@ -105,8 +105,14 @@ def bbpe_train(
     mesh=None,
 ) -> str:
     """Train and save (reference: src/bbpe.c:126-160, src/lib.c:102-126).
-    ``mesh`` (multi-device training) is not ported and raises."""
+    With ``mesh`` (a ``parallel.DataMesh``) the merge loop runs on its
+    devices (``parallel/train.py``); the vocab is the same."""
     if mesh is not None:
-        raise NotImplementedError(MESH_MSG)
-    str2id = bbpe_train_core(data.encode("utf-8"), vocab_size, verbose=verbose)
+        from ..parallel.train import distributed_bbpe_train
+
+        str2id = distributed_bbpe_train(
+            data.encode("utf-8"), vocab_size, mesh=mesh, verbose=verbose
+        )
+    else:
+        str2id = bbpe_train_core(data.encode("utf-8"), vocab_size, verbose=verbose)
     return save_vocab(str2id, vocab_file_name)

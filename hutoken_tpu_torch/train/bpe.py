@@ -40,7 +40,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..pretokenize import split_words
-from .common import MESH_MSG, count_pairs, first_to_reach_winner, left_to_right_merge_mask, save_vocab
+from .common import count_pairs, first_to_reach_winner, left_to_right_merge_mask, save_vocab
 
 
 def _seed_vocab() -> tuple[dict[bytes, int], int]:
@@ -160,13 +160,19 @@ def bpe_train(
     mesh=None,
 ) -> str:
     """Train and save (reference: src/bpe.c:234-263, src/lib.c:76-100).
-    ``mesh`` (multi-device training) is not ported and raises."""
+    ``mesh`` (the string trainer on a device mesh) is not ported yet:
+    ``parallel.train.distributed_bpe_train`` raises."""
     # split_words is called for parity with create_words; with the default
     # parser every byte lands in exactly one word, so elements == bytes.
     _ = split_words  # the parser covers all bytes; no element is dropped
     if mesh is not None:
-        raise NotImplementedError(MESH_MSG)
-    str2id = bpe_train_core(
-        data.encode("utf-8"), vocab_size, strict=strict, verbose=verbose
-    )
+        from ..parallel.train import distributed_bpe_train
+
+        str2id = distributed_bpe_train(
+            data.encode("utf-8"), vocab_size, mesh=mesh, verbose=verbose
+        )
+    else:
+        str2id = bpe_train_core(
+            data.encode("utf-8"), vocab_size, strict=strict, verbose=verbose
+        )
     return save_vocab(str2id, vocab_file_name)

@@ -18,8 +18,8 @@ import os
 import numpy as np
 
 MESH_MSG = (
-    "mesh= (multi-device training) is not ported to PyTorch yet: "
-    "ROADMAP queue 1 item 8"
+    "mesh= for bpe_train (the string trainer on a device mesh) is not "
+    "ported to PyTorch yet: ROADMAP queue 1 item 3"
 )
 
 

@@ -119,9 +119,10 @@ def test_train_arg_validation_and_mesh():
         RuntimeError, match="vocab_file_name file extension must be .txt."
     ):
         hutoken.bbpe_train("abc", 300, "vocab.bin")
-    for train in (hutoken.bpe_train, hutoken.bbpe_train):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-            train("abc", 300, "v.txt", mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
+        hutoken.bpe_train("abc", 300, "v.txt", mesh=object())
+    with pytest.raises(TypeError, match="DataMesh"):
+        hutoken.bbpe_train("abc", 300, "v.txt", mesh=object())
 
 
 def test_foma_unavailable_raises():
