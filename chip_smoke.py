@@ -80,7 +80,23 @@ own:
    (``data_mesh(4)``) on 256 KB and 300 merges, dense and candidate
    picks, equal; (d) checkpoint every 8 merges to 280, resume to 300,
    equal to a straight run, on one and four shards; (e) one 32-merge
-   chunk of each path under ``torch.cuda.set_sync_debug_mode("error")``.
+   chunk of each path under ``torch.cuda.set_sync_debug_mode("error")``;
+9. device string training (``bpe_train(..., mesh=)``'s spelling-group
+   trainer, no hand kernel), each against the port's host
+   ``bpe_train_core(strict=False)``, whose merge log is read off the
+   vocab it fills: warmed by 200 merges on another corpus; (a)
+   ``scripts/benchmark_train.py --mode string``'s config, 1 MB and 1,000
+   merges on ``data_mesh()``, vocab and merge log equal, timed; (b) the
+   BASELINE, 4 MB and 5,000 merges, timed, its first 32 merges equal,
+   then (a) once more under ``torch.profiler`` windows over four scan
+   chunks and 32 tail-loop merges (device time against wall, busy
+   share, top ops); each timed run prints merges/s,
+   ``STRING_SCAN_STATS`` and whether the tail loop took over; (e) one
+   16-sub-step chunk under ``set_sync_debug_mode("error")`` on one and
+   four shards; (c) four shards on the card with the candidate tables
+   cut to 16 rows a shard, equal, the deep pick run at least once; (d)
+   checkpoint every 8 merges to 280, resume to 300, equal to a straight
+   run, on one and four shards.  Each sub-phase prints its time.
 
 The last two lines are the kernel summary and ``{"ok": true, ...}``.
 """
@@ -123,6 +139,15 @@ PREFIX_MERGES = 32
 SHARDS, SHARD_MB, SHARD_MERGES = 4, 0.256, 300
 SCAN_STEPS = 32  # the trainer's merges per chunk
 PROFILE_CHUNKS = 4
+# phase 9: the string trainer at scripts/benchmark_train.py --mode
+# string's config (1 MB, 1,000 merges, seed 0) and at the BASELINE; the
+# four-shard runs cut the candidate tables to STRING_DEPTH rows a shard
+STRING_MERGES = 1000
+STRING_WARM_MERGES = 200
+STRING_DEPTH = 16
+STRING_SHARD_MERGES = 300
+STRING_PROFILE_CHUNKS = 4
+STRING_PROFILE_TAIL = 32
 
 # ------------------------------------------------------------- inputs
 
@@ -1005,6 +1030,294 @@ def device_training(label: str) -> None:
                   f"300: equal to a straight run ({len(log)} merges)")
 
 
+# ------------------------------------------------------------- phase 9
+
+
+class LoggedVocab(dict):
+    """The host core's vocab, logging every spelling it assigns in
+    order: its merge log, as the device trainer writes it (``s <hex>``)."""
+
+    def __init__(self, seed: dict):
+        super().__init__(seed)
+        self.log: list[bytes] = []
+
+    def __setitem__(self, key, value):
+        self.log.append(key)
+        super().__setitem__(key, value)
+
+
+def host_string_train(data: bytes, vocab_size: int):
+    """``bpe_train_core(strict=False)``: (vocab, merge log, wall seconds).
+    The log comes from the vocab it fills, handed in through
+    ``_seed_vocab``."""
+    from hutoken_tpu_torch.train import bpe as B
+
+    seed = B._seed_vocab
+    vocab = LoggedVocab(seed()[0])
+    B._seed_vocab = lambda: (vocab, 256)
+    try:
+        t0 = time.perf_counter()
+        got = B.bpe_train_core(data, vocab_size, strict=False, verbose=False)
+        secs = time.perf_counter() - t0
+    finally:
+        B._seed_vocab = seed
+    return dict(got), vocab.log, secs
+
+
+def string_log_of(path: str) -> list[bytes]:
+    with open(path + ".merges", encoding="utf-8") as f:
+        return [bytes.fromhex(line.split()[1]) for line in f]
+
+
+def device_string_train(data: bytes, vocab_size: int, mesh, ckpt: str, every: int = 1 << 30,
+                        resume: bool = False):
+    """The device string trainer: (vocab, merge log, wall seconds,
+    STRING_SCAN_STATS of the run)."""
+    import torch
+
+    from hutoken_tpu_torch.parallel import train as PT
+
+    for k in PT.STRING_SCAN_STATS:
+        PT.STRING_SCAN_STATS[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vocab = PT.distributed_bpe_train(data, vocab_size, mesh=mesh, verbose=False, checkpoint_path=ckpt,
+                                     checkpoint_every=every, resume=resume)
+    torch.cuda.synchronize()
+    return vocab, string_log_of(ckpt), time.perf_counter() - t0, dict(PT.STRING_SCAN_STATS)
+
+
+class StringTrace:
+    """Counts the string trainer's scan chunks and deep-table steps by
+    wrapping the module globals its driver calls, and, with ``profile``,
+    runs ``torch.profiler`` over two windows of a real run: chunks 2 to
+    STRING_PROFILE_CHUNKS + 1 (with the host's validation between them),
+    and STRING_PROFILE_TAIL merges of the tail loop (deep steps with no
+    chunk between, from the third on).  ``depth`` cuts every candidate
+    table but the deep one to that many rows a shard."""
+
+    def __init__(self, profile: bool = False, depth: int | None = None):
+        self.profile, self.depth = profile, depth
+        self.chunks = self.deep = self.run = 0
+        self.windows: dict[str, dict] = {}
+        self.prof = None
+
+    def __enter__(self):
+        from hutoken_tpu_torch.parallel import train as PT
+
+        self.PT = PT
+        self.saved = (PT.make_string_scan_step, PT._make_shard_ops)
+        make_scan, make_ops = self.saved
+
+        def scan_step(mesh, S, k_top=1024):
+            scan_fn = make_scan(mesh, S, k_top=k_top)
+
+            def counted(*args):
+                self.chunks += 1
+                self.run = 0
+                if self.profile and self.chunks == 2:
+                    self.open("chunks")
+                if self.profile and self.chunks == 2 + STRING_PROFILE_CHUNKS:
+                    self.close()
+                return scan_fn(*args)
+
+            return counted
+
+        def shard_ops(K, mesh, k_top=1024):
+            deep = k_top == PT.DEEP_K
+            ops = make_ops(K, mesh, k_top=k_top if deep or self.depth is None else self.depth)
+            if not deep:
+                return ops
+            count = ops["count_candidates"]
+
+            def counted(shards):
+                self.deep += 1
+                self.run += 1
+                if self.profile and self.run == 3 and "tail" not in self.windows:
+                    self.open("tail")
+                if self.profile and self.run == 3 + STRING_PROFILE_TAIL and self.prof is not None:
+                    self.close()
+                return count(shards)
+
+            return {**ops, "count_candidates": counted}
+
+        PT.make_string_scan_step, PT._make_shard_ops = scan_step, shard_ops
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        self.PT.make_string_scan_step, self.PT._make_shard_ops = self.saved
+
+    def open(self, name: str) -> None:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        self.prof.start()
+        self.windows[name] = {"t0": time.perf_counter(), "chunks": self.chunks, "deep": self.deep,
+                              "stats": dict(self.PT.STRING_SCAN_STATS)}
+
+    def close(self) -> None:
+        import torch
+        from torch.autograd import DeviceType
+
+        if self.prof is None:
+            return
+        torch.cuda.synchronize()
+        name = list(self.windows)[-1]
+        w = self.windows[name]
+        w["wall_ms"] = (time.perf_counter() - w["t0"]) * 1e3
+        self.prof.stop()
+        events = [e for e in self.prof.key_averages() if e.device_type == DeviceType.CUDA]
+        w["device_ms"] = sum(e.self_device_time_total for e in events) / 1e3
+        w["ops"] = sum(e.count for e in events)
+        w["top"] = [(e.key[:48], e.self_device_time_total / 1e3) for e in
+                    sorted(events, key=lambda e: -e.self_device_time_total)[:6]]
+        w["chunks"] = self.chunks - w["chunks"]
+        w["deep"] = self.deep - w["deep"]
+        w["stats"] = {k: v - w["stats"][k] for k, v in self.PT.STRING_SCAN_STATS.items()}
+        self.prof = None
+
+    def tail_merges(self, stats: dict) -> int:
+        """Deep steps of the tail loop: every deep step but those of the
+        scan driver's fallbacks, each counted as a deep or an exact pick."""
+        return self.deep - stats["deep_picks"] - stats["exact_picks"]
+
+    def report(self, label: str) -> None:
+        for name, w in self.windows.items():
+            per = w["deep"] if name == "tail" else w["chunks"]
+            top = ", ".join(f"{k} {ms:.3f}" for k, ms in w["top"])
+            print(f"[{label}] string profile, {name} window ({w['chunks']} chunks, {w['deep']} deep "
+                  f"steps, stats {w['stats']}): wall {w['wall_ms']:.3f} ms, device {w['device_ms']:.3f} ms "
+                  f"= {w['wall_ms'] / max(per, 1):.3f} / {w['device_ms'] / max(per, 1):.3f} ms per "
+                  f"{'merge' if name == 'tail' else 'chunk'}, busy share "
+                  f"{w['device_ms'] / w['wall_ms']:.3f}, {w['ops'] / max(per, 1):.1f} device ops per "
+                  f"{'merge' if name == 'tail' else 'chunk'}; top ms: {top}")
+
+
+def warm_string(mesh, data: bytes, ck) -> None:
+    """Loads every kernel the string trainer runs: a short training and
+    one step of each op the deep table and the probes use."""
+    import torch
+
+    from hutoken_tpu_torch.parallel import train as PT
+    from hutoken_tpu_torch.parallel.mesh import shard_batch
+
+    device_string_train(data, 256 + STRING_WARM_MERGES, mesh, ck("warm.txt"))
+    ops = PT._make_shard_ops(2, mesh, k_top=PT.DEEP_K)
+    ids = shard_batch(mesh, np.frombuffer(data, np.uint8).astype(np.int32))
+    c = torch.full((PT.MAXC,), -1, dtype=torch.int32, device=mesh.devices[0])
+    c[0] = 97
+    ids = ops["apply_merge_multi"](ids, c, c, 300)
+    torch.cat([t.reshape(-1) for t in (*ops["count_candidates"](ids), *ops["probe_pairs"](ids, c, c))]).cpu()
+
+
+def string_no_sync_chunk(mesh, data: bytes, what: str) -> None:
+    """(e) One speculative chunk under ``set_sync_debug_mode("error")``."""
+    import torch
+
+    from hutoken_tpu_torch.parallel import train as PT
+    from hutoken_tpu_torch.parallel.mesh import shard_batch
+
+    scan = PT.make_string_scan_step(mesh, 16, k_top=8192)
+    ids = shard_batch(mesh, np.frombuffer(data, np.uint8).astype(np.int32))
+    q = torch.full((2, PT.PROBE_P), -1, dtype=torch.int32, device=mesh.devices[0])
+    q[:, 0] = 101  # the pair "ee", watched
+    scan(ids, 256, q[0], q[1])  # warm, outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _ids, rows = scan(ids, 256, q[0], q[1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    c = rows[:, -1].cpu()
+    check(int(c[0]) > 1, f"string no-sync chunk ({what}) merged")
+    print(f"string no-sync chunk ({what}): 16 sub-steps enqueued under sync debug mode 'error', "
+          f"no host sync; first pair counts {c[:4].tolist()}")
+
+
+def string_training(label: str) -> None:
+    """Phase 9: the device string trainer, ``bpe_train(...,
+    mesh=data_mesh())``'s path, against the host
+    ``bpe_train_core(strict=False)``."""
+    from hutoken_tpu_torch.parallel import data_mesh
+
+    mesh = data_mesh()
+    with tempfile.TemporaryDirectory(prefix="hutoken-string-") as tmp:
+        ck = functools.partial(os.path.join, tmp)
+        t0 = time.perf_counter()
+        warm_string(mesh, train_corpus(EXACT_MB, 1), ck)
+        print(f"[{label}] string warmup ({STRING_WARM_MERGES} merges on seed 1, one deep step): "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # (a) exactness at scripts/benchmark_train.py --mode string's config, timed
+        t0 = time.perf_counter()
+        data = train_corpus(EXACT_MB, 0)
+        want, want_log, host_s = host_string_train(data, 256 + STRING_MERGES)
+        with StringTrace() as tr:
+            got, log, dev_s, stats = device_string_train(data, 256 + STRING_MERGES, mesh, ck("exact.txt"))
+        check(got == want and log == want_log,
+              "(a) string vocab and merge log == bpe_train_core(strict=False)")
+        print(f"[{label}] (a) string training {len(data)} B, {len(log)} merges on one card: vocab and "
+              f"merge log equal to bpe_train_core(strict=False); device {len(log) / dev_s:.2f} merges/s "
+              f"({dev_s:.3f} s, {tr.chunks} chunks, tail loop took over: {tr.tail_merges(stats) > 0} "
+              f"({tr.tail_merges(stats)} tail merges), stats {stats}); host core "
+              f"{len(want_log) / host_s:.2f} merges/s ({host_s:.1f} s); sub-phase "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # (b) the BASELINE, then a profiled run of (a)'s config
+        t0 = time.perf_counter()
+        data4 = train_corpus(FULL_MB, 0)
+        with StringTrace() as tr:
+            got4, log4, dev4_s, stats4 = device_string_train(data4, 256 + FULL_MERGES, mesh, ck("full.txt"))
+        _w, want_log4, _s = host_string_train(data4, 256 + PREFIX_MERGES)
+        check(log4[:PREFIX_MERGES] == want_log4, f"(b) the first {PREFIX_MERGES} string merges == host core")
+        print(f"[{label}] (b) string training {len(data4)} B, {len(log4)} merges to vocab {len(got4)}: "
+              f"{len(log4) / dev4_s:.2f} merges/s ({dev4_s:.3f} s, {tr.chunks} chunks, tail loop took "
+              f"over: {tr.tail_merges(stats4) > 0} ({tr.tail_merges(stats4)} tail merges), stats {stats4}); "
+              f"first {PREFIX_MERGES} merges equal to the host core; sub-phase "
+              f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        with StringTrace(profile=True) as tr:
+            got, log, dev_s, stats = device_string_train(data, 256 + STRING_MERGES, mesh, ck("prof.txt"))
+        check(log == want_log, "(b) the profiled run == (a)")
+        tr.report(label)
+        check("chunks" in tr.windows, "(b) a chunk window was profiled")
+        print(f"[{label}] (b) profiled run: {len(log) / dev_s:.2f} merges/s under the windows; sub-phase "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # (e) no host sync inside a chunk
+        string_no_sync_chunk(mesh, data, f"1 shard, {len(data)} B")
+
+        # (c) four shards on the card, candidate tables cut to STRING_DEPTH rows
+        t0 = time.perf_counter()
+        shards = data_mesh(SHARDS)
+        data = train_corpus(SHARD_MB, 2)
+        want, want_log, _s = host_string_train(data, 256 + STRING_SHARD_MERGES)
+        with StringTrace(depth=STRING_DEPTH) as tr:
+            got, log, dev_s, stats = device_string_train(data, 256 + STRING_SHARD_MERGES, shards,
+                                                         ck("shards.txt"))
+        check(got == want and log == want_log, f"(c) {SHARDS} shards at depth {STRING_DEPTH}: == host core")
+        check(stats["deep_picks"] > 0, f"(c) the deep pick ran: {stats}")
+        print(f"[{label}] (c) {SHARDS} shards on one card, candidate depth {STRING_DEPTH}, {len(data)} B, "
+              f"{len(log)} merges: vocab and merge log equal to the host core; {len(log) / dev_s:.2f} "
+              f"merges/s, stats {stats}, {tr.deep} deep steps; sub-phase {time.perf_counter() - t0:.1f} s")
+        string_no_sync_chunk(shards, data, f"{SHARDS} shards")
+
+        # (d) checkpoint and resume
+        t0 = time.perf_counter()
+        for m in (mesh, shards):
+            straight, straight_log, _s, _st = device_string_train(data, 300, m, ck(f"s{m.size}.txt"))
+            device_string_train(data, 280, m, ck(f"r{m.size}.txt"), every=8)
+            resumed, log, _s, _st = device_string_train(data, 300, m, ck(f"r{m.size}.txt"), resume=True)
+            check(resumed == straight and log == straight_log,
+                  f"(d) string resume == straight run ({m.size} shards)")
+            print(f"(d) {m.size} shard(s): string training to 280 with checkpoints every 8 merges, "
+                  f"resumed to 300: equal to a straight run ({len(log)} merges)")
+        print(f"[{label}] (d) sub-phase {time.perf_counter() - t0:.1f} s")
+
+
 def merge_entry(name, source, replaces, launches, per_run, res, key, by) -> dict:
     """A kernels-line entry of a merge kernel: ``res["by"][key]`` is the
     row its ms, plain_ms and bound come from; ``by`` names the other
@@ -1106,6 +1419,11 @@ def main() -> int:
     t0 = time.perf_counter()
     device_training(label)
     print(f"device training took {time.perf_counter() - t0:.1f} s")
+
+    # 9. device string training
+    t0 = time.perf_counter()
+    string_training(label)
+    print(f"device string training took {time.perf_counter() - t0:.1f} s")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "hutoken_tpu"))
     check(not loaded, f"neither jax nor the JAX package was loaded: {loaded[:5]}")

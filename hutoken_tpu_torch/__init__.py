@@ -25,10 +25,10 @@ under ``auto`` ``batch_decode`` goes there only with
 native host decode that ``auto`` runs anyway and building the engine
 needs the device.  Everything else decodes on the host.
 
-The trainers run on the host, except ``bbpe_train(..., mesh=)``: with
-``mesh=parallel.data_mesh()`` its merge loop runs on the card
-(``parallel/train.py``), and the vocab is the host's.  ``bpe_train``'s
-``mesh=`` raises ``NotImplementedError``.  The package
+The trainers run on the host, except with ``mesh=``: with
+``mesh=parallel.data_mesh()`` the merge loop of ``bbpe_train`` or
+``bpe_train`` runs on the card (``parallel/train.py``), and the vocab is
+the host's (``bpe_train``'s that of ``strict=False``).  The package
 imports nothing of JAX and nothing of the JAX package ``hutoken_tpu``:
 it keeps its own copies of the host modules it needs.
 """
@@ -263,9 +263,11 @@ def batch_decode(tokens: list[list[int]], num_threads: int = 1) -> list[str]:
 
 
 def bpe_train(data: str, vocab_size: int, vocab_file_name: str, **kwargs: Any):
-    """Train a BPE vocab on the host (``strict=False`` disables the
-    reference-bug emulation, see ``train/bpe.py``; ``mesh=``, the string
-    trainer on a device mesh, raises ``NotImplementedError``)."""
+    """Train a BPE vocab: on the host (``strict=False`` disables the
+    reference-bug emulation, see ``train/bpe.py``), or with
+    ``mesh=parallel.data_mesh()`` on the card, where it writes what
+    ``strict=False`` writes (``parallel/train.py``; ``data_mesh(n,
+    device="cpu")`` shards it on the CPU)."""
     from .train.bpe import bpe_train as _bpe_train
 
     _validate_train_args(vocab_size, vocab_file_name)

@@ -160,8 +160,9 @@ def bpe_train(
     mesh=None,
 ) -> str:
     """Train and save (reference: src/bpe.c:234-263, src/lib.c:76-100).
-    ``mesh`` (the string trainer on a device mesh) is not ported yet:
-    ``parallel.train.distributed_bpe_train`` raises."""
+    With ``mesh`` (a ``parallel.DataMesh``), the merge loop runs on the
+    mesh's devices (``parallel.train.distributed_bpe_train``, strict=False
+    semantics)."""
     # split_words is called for parity with create_words; with the default
     # parser every byte lands in exactly one word, so elements == bytes.
     _ = split_words  # the parser covers all bytes; no element is dropped

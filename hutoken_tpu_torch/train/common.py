@@ -17,11 +17,6 @@ import os
 
 import numpy as np
 
-MESH_MSG = (
-    "mesh= for bpe_train (the string trainer on a device mesh) is not "
-    "ported to PyTorch yet: ROADMAP queue 1 item 3"
-)
-
 
 def count_pairs(keys: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Unique pair keys with counts and per-position inverse."""

@@ -119,7 +119,7 @@ def test_train_arg_validation_and_mesh():
         RuntimeError, match="vocab_file_name file extension must be .txt."
     ):
         hutoken.bbpe_train("abc", 300, "vocab.bin")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
+    with pytest.raises(TypeError, match="DataMesh"):
         hutoken.bpe_train("abc", 300, "v.txt", mesh=object())
     with pytest.raises(TypeError, match="DataMesh"):
         hutoken.bbpe_train("abc", 300, "v.txt", mesh=object())

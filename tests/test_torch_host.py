@@ -246,13 +246,9 @@ def test_trainers_write_identical_vocab_files(which, tmp_path, monkeypatch):
     want = jtrain(data, 320, "jax.txt", verbose=False)
     got = ptrain(data, 320, "port.txt", verbose=False)
     assert open(got, "rb").read() == open(want, "rb").read()
-    # bbpe routes mesh= to the device trainer, which takes only the
-    # port's DataMesh; the string trainer's mesh= is not ported yet
-    refusal = (
-        pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3") if which == "bpe"
-        else pytest.raises(TypeError, match="DataMesh")
-    )
-    with refusal:
+    # both route mesh= to the device trainers, which take only the
+    # port's DataMesh
+    with pytest.raises(TypeError, match="DataMesh"):
         ptrain(data, 320, "mesh.txt", verbose=False, mesh=object())
 
 
@@ -379,7 +375,8 @@ def test_engine_constants_equal():
 # which hashes once per build rather than once per pair and capacity
 # (test_encoder_tables_equal and test_pair_table_build_equal hold its
 # tables equal to the original's).  The trainers' mesh= branches are
-# copies: they call the port's parallel.train, whose bpe entry raises.
+# copies: they call the port's parallel.train, whose entries train on
+# the port's DataMesh.
 DIFFER = {"build_pair_table"}
 MODULE_PAIRS = [
     ("utils/logging.py", "utils.logging"), ("utils/mem.py", "utils.mem"),

@@ -321,8 +321,8 @@ def test_mesh_refusals(tmp_path, monkeypatch):
     monkeypatch.setenv("HOME", str(tmp_path))
     with pytest.raises(TypeError, match="DataMesh"):
         PF.bbpe_train("abc abc", 300, "v.txt", mesh=jax_mesh(1))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
-        PF.bpe_train("abc abc", 300, "v.txt", mesh=data_mesh(1, device="cpu"))
+    with pytest.raises(TypeError, match="DataMesh"):
+        PF.bpe_train("abc abc", 300, "v.txt", mesh=jax_mesh(1))
     with pytest.raises(ValueError, match="at least one shard"):
         data_mesh(0, device="cpu")
     with pytest.raises(ValueError, match="cuda"):
