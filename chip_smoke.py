@@ -96,7 +96,24 @@ own:
    four shards; (c) four shards on the card with the candidate tables
    cut to 16 rows a shard, equal, the deep pick run at least once; (d)
    checkpoint every 8 merges to 280, resume to 300, equal to a straight
-   run, on one and four shards.  Each sub-phase prints its time.
+   run, on one and four shards.  Each sub-phase prints its time;
+10. sharded encode and training across processes (``parallel/sharded.py``,
+   ``multihost.py``; the fused kernel per shard, no new kernel): (a)
+   ``TorchTokenizer(ctx, mesh=data_mesh(4))`` on big-merges over both
+   corpora and wide-merges over the unique one, cold runs in turns with
+   the single-device engine (single, sharded, sharded, single; the
+   single-device runs under ``HUTOKEN_TPU_RAW=0``, the same word
+   pipeline), every document equal, MB/s of each, the fused kernel
+   (narrow or wide) launched on every shard as often as the engine sent
+   it blocks and ``seg_merge`` never, the device busy share of one
+   profiled sharded run; again on ``data_mesh()`` with two or more
+   cards; (b) a 1-process NCCL world in this process
+   (``initialize_distributed`` twice, ``global_data_mesh()``) training
+   both trainers at (c)'s 256 KB / 300 merges, equal to the host cores;
+   (c) two processes over gloo (``python3 chip_smoke.py --peer ...``),
+   two shards each on the card, equal to the host cores on both ranks;
+   (d) two NCCL processes, one per card, with two or more cards, else a
+   line saying it was not run.  Each sub-phase prints its time.
 
 The last two lines are the kernel summary and ``{"ok": true, ...}``.
 """
@@ -148,6 +165,10 @@ STRING_DEPTH = 16
 STRING_SHARD_MERGES = 300
 STRING_PROFILE_CHUNKS = 4
 STRING_PROFILE_TAIL = 32
+# phase 10: the sharded engine's shards on one card, and the time a
+# multi-process sub-phase may take
+MESH_SHARDS = 4
+PEER_TIMEOUT = 300
 
 # ------------------------------------------------------------- inputs
 
@@ -1318,6 +1339,255 @@ def string_training(label: str) -> None:
         print(f"[{label}] (d) sub-phase {time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------------------------ phase 10
+
+
+def sharded_run(device: str, ctx, docs: list[str], mesh, what: str, label: str,
+                profile_it: bool = False) -> list:
+    """(a) One vocabulary and corpus on the sharded engine
+    (``TorchTokenizer(ctx, mesh=mesh)``, ``HUTOKEN_TPU_RAW=auto``) and
+    the single-device engine (``HUTOKEN_TPU_RAW=0``: the same word
+    pipeline), cold runs in turns single, sharded, sharded, single, each
+    run's ids equal to the first's.  The counts are zeroed right before
+    each sharded run and read right after: the fused kernel (narrow or
+    wide) must have launched on every shard, as many times as the engine
+    sent blocks, and ``seg_merge`` never.  Returns the per-shard
+    launches of the first sharded run."""
+    from hutoken_tpu_torch.engine import TorchTokenizer
+
+    single = TorchTokenizer(ctx, device=device)
+    sharded = TorchTokenizer(ctx, mesh=mesh)
+    check(len({id(t) for t in sharded._shard_tables}) == len(set(mesh.devices)), f"{what}: one table replica a card")
+    nbytes = sum(len(d.encode()) for d in docs)
+
+    def cold(engine, raw_env: str):
+        os.environ["HUTOKEN_TPU_RAW"] = raw_env
+        engine.reset_cache()
+        zero_launch_counts()
+        engine.stat_shard_fused = [0] * len(engine.stat_shard_fused)
+        sync(device)
+        t0 = time.perf_counter()
+        ids = engine.encode_batch(docs)
+        sync(device)
+        return ids, time.perf_counter() - t0, launch_counts(), list(engine.stat_shard_fused)
+
+    want, t_one, _c, _s = cold(single, "0")
+    runs = [cold(sharded, "auto"), cold(sharded, "auto")]
+    again, t_one2, _c, _s = cold(single, "0")
+    check(again == want, f"{what}: the single-device engine repeats itself")
+    per_shard = runs[0][3]
+    for ids, _t, counts, shards in runs:
+        bad = sum(g != w for g, w in zip(ids, want))
+        check(len(ids) == len(docs) and bad == 0, f"{what}: {bad} documents differ from the single-device engine")
+        fused = counts["fused_merge"] + counts["fused_merge_wide"]
+        check(counts["seg_merge"] == 0, f"{what}: the raw path ran under a mesh: {counts}")
+        check(min(shards) > 0 and sum(shards) == fused,
+              f"{what}: fused launches per shard {shards}, {fused} counted by the wrapper")
+        check(shards == per_shard, f"{what}: a cold run launches as the first did ({shards} vs {per_shard})")
+    busy = ""
+    if profile_it:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        sharded.reset_cache()
+        sync(device)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sharded.encode_batch(docs)
+            sync(device)
+            wall = time.perf_counter() - t0
+        dev = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+        busy = f"; profiled sharded run: wall {wall:.3f} s, device {dev / 1e3:.3f} ms, busy share {dev / 1e6 / wall:.4f}"
+    mb = nbytes / 1e6
+    t_sh = [t for _i, t, _c, _s in runs]
+    print(f"[{label}] (a) {what}: {mb:.1f} MB, {len(docs)} docs, sharded on {mesh.size} shards == single "
+          f"device (all docs); cold MB/s single {mb / t_one:.2f} / sharded {mb / t_sh[0]:.2f} / "
+          f"{mb / t_sh[1]:.2f} / single {mb / t_one2:.2f}; fused launches per shard {per_shard} "
+          f"({'wide' if runs[0][2]['fused_merge_wide'] else 'narrow'}), seg_merge 0; "
+          f"device words {sharded.stat_device_words}{busy}")
+    os.environ.pop("HUTOKEN_TPU_RAW", None)
+    return per_shard
+
+
+def sharded_encode(device: str, zipf: list[str], unique: list[str], label: str) -> dict:
+    """(a) the sharded engine on ``data_mesh(MESH_SHARDS)`` (and on
+    ``data_mesh()`` when there are more cards): big-merges over both
+    corpora, wide-merges over the unique one.  Returns the per-shard
+    launches of the 4-shard runs by run."""
+    import torch
+
+    from hutoken_tpu_torch.context import TokenizerContext
+    from hutoken_tpu_torch.parallel import data_mesh
+
+    meshes = [data_mesh(MESH_SHARDS, device)]
+    if device == "cuda" and torch.cuda.device_count() > 1:
+        meshes.append(data_mesh())
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="hutoken-wide-") as wide_dir:
+        big = TokenizerContext.load(*fixture_paths("big-merges")[:2], is_byte_encoder=True,
+                                    merges_file_path=fixture_paths("big-merges")[2])
+        vocab, special, merges = wide_paths(wide_dir)["wide-merges"]
+        wide = TokenizerContext.load(vocab, special, is_byte_encoder=True, merges_file_path=merges)
+        for mesh in meshes:
+            for config, ctx, cname, docs in (("big-merges", big, "zipf", zipf),
+                                             ("big-merges", big, "unique", unique),
+                                             ("wide-merges", wide, "unique", unique)):
+                t0 = time.perf_counter()
+                what = f"{config} {cname} on {mesh.size} shards"
+                shards = sharded_run(device, ctx, docs, mesh, what, label,
+                                     profile_it=(config, cname) == ("big-merges", "unique"))
+                if mesh is meshes[0]:
+                    out[f"{config} {cname}"] = shards
+                print(f"(a) {what}: sub-phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def sync(device: str) -> None:
+    import torch
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_trainers(mesh) -> dict:
+    """Both trainers at (c)'s config on ``mesh``: vocabs and seconds."""
+    from hutoken_tpu_torch.parallel.train import distributed_bbpe_train, distributed_bpe_train
+
+    data = train_corpus(SHARD_MB, 2)
+    out = {}
+    for name, train in (("bbpe", distributed_bbpe_train), ("string", distributed_bpe_train)):
+        t0 = time.perf_counter()
+        out[name] = train(data, 256 + SHARD_MERGES, mesh=mesh, verbose=False)
+        sync(mesh.devices[0].type)
+        out[name + "_s"] = time.perf_counter() - t0
+    return out
+
+
+def peer(argv: list[str]) -> int:
+    """One process of (c) or (d): ``--peer RANK WORLD ADDR BACKEND
+    DEVICE N_LOCAL OUT`` joins the group, trains both trainers on
+    ``global_data_mesh(N_LOCAL, DEVICE)`` and writes the vocabs to OUT."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from hutoken_tpu_torch.parallel.multihost import global_data_mesh, initialize_distributed
+
+    rank, world, addr, backend, device, n_local, out = argv
+    if backend == "nccl":
+        os.environ["LOCAL_RANK"] = rank  # one rank per card
+    initialize_distributed(addr, int(world), int(rank), backend=backend)
+    mesh = global_data_mesh(int(n_local), device)
+    got = mesh_trainers(mesh)
+    dist.destroy_process_group()
+    got["mesh"] = (mesh.size, mesh.process_index, mesh.process_count, [str(d) for d in mesh.devices])
+    with open(out, "wb") as f:
+        pickle.dump(got, f)
+    return 0
+
+
+def peer_world(device: str, backend: str, n_local: int, want: dict, what: str, label: str) -> None:
+    """Two ``peer`` processes; rank 0's vocabs (and rank 1's) must equal
+    the host cores'."""
+    import pickle
+    import subprocess
+
+    addr = f"localhost:{free_port()}"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="hutoken-peers-") as tmp:
+        stems = [os.path.join(tmp, f"rank{rank}") for rank in range(2)]
+        procs = []
+        try:
+            for rank, stem in enumerate(stems):
+                with open(stem + ".log", "w") as log:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--peer", str(rank), "2",
+                         addr, backend, device, str(n_local), stem + ".pkl"],
+                        stdout=log, stderr=subprocess.STDOUT))
+            # until both end, one fails (the other would wait on it) or time is up
+            deadline = time.monotonic() + PEER_TIMEOUT
+            rcs = [None] * len(procs)
+            while time.monotonic() < deadline:
+                rcs = [p.poll() for p in procs]
+                if None not in rcs or any(rc not in (None, 0) for rc in rcs):
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        bad = []
+        for rank, (rc, stem) in enumerate(zip(rcs, stems)):
+            if rc != 0:
+                with open(stem + ".log") as f:
+                    bad.append(f"rank {rank} exited {rc} (None: stopped here):\n{f.read()[-3000:]}")
+        check(not bad, f"({what}) " + "\n".join(bad))
+        got = []
+        for stem in stems:
+            with open(stem + ".pkl", "rb") as f:
+                got.append(pickle.load(f))
+    for rank, g in enumerate(got):
+        check(g["mesh"][:3] == (2 * n_local, rank, 2), f"({what}) rank {rank}'s mesh {g['mesh']}")
+        check(g["bbpe"] == want["bbpe"], f"({what}) rank {rank}: bbpe == bbpe_train_core")
+        check(g["string"] == want["string"], f"({what}) rank {rank}: string == bpe_train_core(strict=False)")
+    print(f"[{label}] ({what}) 2 processes over {backend}, {n_local} shard(s) each on "
+          f"{got[0]['mesh'][3]} / {got[1]['mesh'][3]}: {SHARD_MERGES} merges on {SHARD_MB * 1e3:.0f} KB, "
+          f"bbpe and string vocabs equal to the host cores on both ranks; rank 0 bbpe "
+          f"{got[0]['bbpe_s']:.2f} s, string {got[0]['string_s']:.2f} s (first use in the process "
+          f"included); sub-phase {time.perf_counter() - t0:.1f} s")
+
+
+def multi_process_training(device: str, label: str) -> None:
+    """(b) a 1-process NCCL world in this process; (c) two gloo
+    processes sharing the card, two shards each; (d) two NCCL processes,
+    one per card, when there are two cards."""
+    import torch
+    import torch.distributed as dist
+
+    from hutoken_tpu_torch.parallel.multihost import global_data_mesh, initialize_distributed
+
+    t0 = time.perf_counter()
+    data = train_corpus(SHARD_MB, 2)
+    want = {"bbpe": host_train(data, 256 + SHARD_MERGES)[0],
+            "string": host_string_train(data, 256 + SHARD_MERGES)[0]}
+    print(f"host cores at {SHARD_MB * 1e3:.0f} KB / {SHARD_MERGES} merges: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    addr = f"localhost:{free_port()}"
+    initialize_distributed(addr, 1, 0)
+    initialize_distributed(addr, 1, 0)  # a second call is a no-op
+    try:
+        backend = "nccl" if device == "cuda" else "gloo"
+        check(dist.get_backend() == backend and dist.get_world_size() == 1, f"(b) a 1-process {backend} world")
+        mesh = global_data_mesh(device=device)
+        one = torch.ones(1, device=mesh.devices[0])
+        dist.all_reduce(one)
+        check(int(one.item()) == 1, f"(b) an all_reduce over one {backend} rank")
+        got = mesh_trainers(mesh)
+    finally:
+        dist.destroy_process_group()
+    check(got["bbpe"] == want["bbpe"] and got["string"] == want["string"], "(b) vocabs == the host cores")
+    print(f"[{label}] (b) 1-process {backend} world (initialized twice), global_data_mesh() of {mesh.size} "
+          f"shard(s): bbpe {got['bbpe_s']:.2f} s, string {got['string_s']:.2f} s, equal to the host cores; "
+          f"sub-phase {time.perf_counter() - t0:.1f} s")
+
+    peer_world(device, "gloo", 2, want, "c", label)
+    if device == "cuda" and torch.cuda.device_count() > 1:
+        peer_world(device, "nccl", 1, want, "d", label)
+    else:
+        print(f"[{label}] (d) not run: two NCCL processes need a second card, and this machine has "
+              f"{torch.cuda.device_count()}")
+
+
 def merge_entry(name, source, replaces, launches, per_run, res, key, by) -> dict:
     """A kernels-line entry of a merge kernel: ``res["by"][key]`` is the
     row its ms, plain_ms and bound come from; ``by`` names the other
@@ -1424,6 +1694,15 @@ def main() -> int:
     t0 = time.perf_counter()
     string_training(label)
     print(f"device string training took {time.perf_counter() - t0:.1f} s")
+
+    # 10. sharded encode and training across processes; counts are zeroed
+    # inside, right before each sharded run
+    t0 = time.perf_counter()
+    mesh_launches = sharded_encode(device, zipf, unique, label)
+    print(f"sharded encode took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    multi_process_training(device, label)
+    print(f"multi-process training took {time.perf_counter() - t0:.1f} s")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "hutoken_tpu"))
     check(not loaded, f"neither jax nor the JAX package was loaded: {loaded[:5]}")
@@ -1431,11 +1710,13 @@ def main() -> int:
 
     fused_src = "hutoken_tpu_torch/csrc/fused_merge.cu"
     print(json.dumps({"kernels": [
-        merge_entry("fused_merge", fused_src, "hutoken_tpu/ops/pallas_merge.py:252",
-                    launches["fused_merge"], per_run["fused_merge"], kv, "big-merges L=32", "block"),
+        {**merge_entry("fused_merge", fused_src, "hutoken_tpu/ops/pallas_merge.py:252",
+                       launches["fused_merge"], per_run["fused_merge"], kv, "big-merges L=32", "block"),
+         "launches_per_shard_mesh4": {k: v for k, v in mesh_launches.items() if "wide" not in k}},
         {"variant": "wide", **merge_entry(
             "fused_merge", fused_src, "hutoken_tpu/ops/rmatrix.py:231",
-            wide_launches, wide_per_run, kvw, "wide-merges L=32", "block")},
+            wide_launches, wide_per_run, kvw, "wide-merges L=32", "block"),
+         "launches_per_shard_mesh4": {k: v for k, v in mesh_launches.items() if "wide" in k}},
         merge_entry("seg_merge", "hutoken_tpu_torch/csrc/seg_merge.cu",
                     "hutoken_tpu/ops/pallas_merge.py:445", launches["seg_merge"],
                     per_run["seg_merge"], sv, "big-merges", "table"),
@@ -1450,4 +1731,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--peer"]:
+        sys.exit(peer(sys.argv[2:]))
     sys.exit(main())

@@ -56,6 +56,11 @@ bounded and the shared chunker reads them; and the bytes-per-token
 predictor with its ``aux`` check in ``decode_arrays_device``, because it
 spares the host a pass over every token's length before the launch.
 The padding they add costs device work, never exactness.
+
+With ``mesh=`` (a process-local ``parallel.data_mesh``) every block
+launch is split over the mesh's shards (``TorchTokenizer``).  Left out
+under a mesh, as in the JAX engine: the raw path, and meshes with
+shards on other processes (refused).
 """
 
 from __future__ import annotations
@@ -75,6 +80,8 @@ from .ops.decode import decode_tokens_blob, decode_tokens_blob_tot, write_chunk
 from .ops.fused_merge import MAX_WORD, merge_words_from_bytes_fused
 from .ops.merge import merge_words_from_bytes_packed, merge_words_packed
 from .ops.split import RawChunkEncoder, find_cut, supported_alphabet
+from .parallel.mesh import DataMesh
+from .parallel.sharded import replicas, row_slices
 from .pretokenize import encode_remap, split_words, split_words_pattern
 from .tables import build_encoder_tables, device_tables
 from .utils.mem import tune_allocator
@@ -113,15 +120,40 @@ except ValueError:
 
 
 class TorchTokenizer:
-    """Batch encoder bound to one TokenizerContext and one device.
+    """Batch encoder bound to one TokenizerContext and one device, or a
+    process-local data mesh.
 
     ``device`` is ``"cuda"`` (or ``"cuda:N"``) for the kernel path, or
     ``"cpu"``, where every kernel runs its plain PyTorch twin.
+
+    ``mesh`` (``parallel.data_mesh(n)``, the counterpart of the JAX
+    engine's ``mesh=``) splits every block launch's rows into contiguous
+    near-equal slices, one per shard, each merged on its shard's device
+    with the tables replicated once per distinct device; the mesh's
+    first device is then the engine's (decode and the rest), and
+    ``device`` may be left out or name its type.  Unlike the JAX engine, the fused kernel
+    still runs under a mesh, and the rows need not divide over it.  The
+    raw path is off under a mesh, as in the JAX engine.  A mesh with
+    shards on other processes is refused: each process encodes its own
+    texts.
     """
 
-    def __init__(self, ctx: TokenizerContext, *, device: torch.device | str,
-                 prefer_device_decode: bool = False):
+    def __init__(self, ctx: TokenizerContext, *, device: torch.device | str | None = None,
+                 prefer_device_decode: bool = False, mesh: Optional[DataMesh] = None):
         tune_allocator()
+        if mesh is not None:
+            if not isinstance(mesh, DataMesh):
+                raise TypeError(f"mesh must be a DataMesh (data_mesh()), not {type(mesh).__name__}")
+            if mesh.process_count > 1:
+                raise ValueError(
+                    f"mesh spans {mesh.process_count} processes: the engine places blocks "
+                    "on this process's devices only; encode on a process-local data_mesh()"
+                )
+            if device is not None and torch.device(device).type != mesh.devices[0].type:
+                raise ValueError(f"device {device} is not of the mesh's type: {mesh.devices[0]}")
+            device = mesh.devices[0]
+        elif device is None:
+            raise TypeError("TorchTokenizer needs device= or mesh=")
         self.device = torch.device(device)
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {self.device}")
@@ -133,6 +165,11 @@ class TorchTokenizer:
         self.ctx = ctx
         self.tables = build_encoder_tables(ctx)
         self.dev_tables = device_tables(self.tables, ctx, self.device)
+        # the shards that merge each block: one on the engine's device
+        # without a mesh (``_mesh`` None, which gates the raw path)
+        self._mesh = mesh
+        self._shards = DataMesh((self.device,)) if mesh is None else mesh
+        self._shard_tables = replicas(self.dev_tables, self._shards)
         # per-word token spans: one flat pool, the dict cache for the
         # python path and gid-indexed span arrays for the native interner
         self._word_cache: dict[bytes, tuple[int, int]] = {}
@@ -151,6 +188,8 @@ class TorchTokenizer:
         self.stat_device_bytes = 0
         self.stat_device_words = 0
         self.stat_flagged_words = 0
+        # blocks each shard sent to the fused kernel (its twin on the CPU)
+        self.stat_shard_fused = [0] * self._shards.size
         # host-encoded bytes of the raw path by cause: raw_host_chunk
         # (alphabet or capacity), over_bucket (words > 32 bytes),
         # partial_flag (never, with the full-table probe)
@@ -574,7 +613,8 @@ class TorchTokenizer:
         # the JAX engine's routing (engine.py:543-556): big batches whose
         # sampled unique-byte ratio is high take the raw path; a wide
         # table never does, even under HUTOKEN_TPU_RAW=1 (the JAX gate is
-        # its Pallas table, None for ids or ranks >= 0xFFFF)
+        # its Pallas table, None for ids or ranks >= 0xFFFF), nor does an
+        # engine on a mesh (the JAX gate, engine.py:550)
         raw_env = os.environ.get("HUTOKEN_TPU_RAW", "auto")
         if (
             raw_env != "0"
@@ -583,6 +623,7 @@ class TorchTokenizer:
             and self.dev_tables.byte_seed is not None
             and self.ctx.compiled_pattern is None
             and self.ctx.prefix is None
+            and self._mesh is None
         ):
             total = sum(len(t) for t in texts)
             if raw_env == "1" or (
@@ -599,26 +640,45 @@ class TorchTokenizer:
 
     # ------------------------------------------- device launch and copy
 
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        if self.device.type == "cuda":
+    def _to_device(self, arr: np.ndarray, device: Optional[torch.device] = None) -> torch.Tensor:
+        """``arr`` on ``device`` (default: the engine's)."""
+        device = self.device if device is None else device
+        if device.type == "cuda":
             # one host copy, straight into pinned memory: a copy from
             # pageable memory would wait for every kernel already queued
             # on the stream
             dtype = torch.from_numpy(np.empty(0, dtype=arr.dtype)).dtype
             host = torch.empty(arr.shape, dtype=dtype, pin_memory=True)
             host.numpy()[...] = arr
-            return host.to(self.device, non_blocking=True)
+            return host.to(device, non_blocking=True)
         # the tensor aliases the array and torch tensors are writable: a
         # read-only array (a raw chunk cut from a document's bytes) is
         # copied first
         return torch.from_numpy(np.require(arr, requirements=["C", "W"]))
 
-    def _merge_block(self, block: np.ndarray) -> torch.Tensor:
-        return merge_words_packed(self.dev_tables, self._to_device(block), False)
+    def _shard_split(self, rows: int):
+        """(shard, row slice, tables) for each shard that takes rows of a
+        block of ``rows`` rows: contiguous near-equal slices in shard
+        order, one shard on a single device."""
+        return [
+            (s, sl, tab)
+            for s, (sl, tab) in enumerate(zip(row_slices(rows, self._shards), self._shard_tables))
+            if sl.stop > sl.start
+        ]
+
+    def _merge_block(self, block: np.ndarray) -> list:
+        """The launch of an id block: per shard ``(packed, rows, token
+        bound)``, its packed output on its device."""
+        return [
+            (merge_words_packed(tab, self._to_device(block[sl], tab.device), False),
+             sl.stop - sl.start, int((block[sl] >= 0).sum()))
+            for _s, sl, tab in self._shard_split(block.shape[0])
+        ]
 
     def _merge_bytes_block(
         self, raw: np.ndarray, lens: np.ndarray, max_len: int = 0
-    ) -> torch.Tensor:
+    ) -> list:
+        """The launch of a byte block, as ``_merge_block``'s."""
         # narrow the block to the longest word (rounded up to 8/16/32/...):
         # length-sorted blocks are homogeneous
         L = raw.shape[1]
@@ -626,25 +686,26 @@ class TorchTokenizer:
         target = max(1, max_len or L)
         while width < target and width < L:
             width *= 2
-        raw_d = self._to_device(raw[:, :width])
-        lens_d = self._to_device(lens)
-        if width <= MAX_WORD:
-            return merge_words_from_bytes_fused(
-                self.dev_tables, raw_d, lens_d, self._u16_out
-            )
-        return merge_words_from_bytes_packed(
-            self.dev_tables, raw_d, lens_d, self._u16_out
-        )
+        out = []
+        for s, sl, tab in self._shard_split(raw.shape[0]):
+            raw_d = self._to_device(raw[sl, :width], tab.device)
+            lens_d = self._to_device(lens[sl], tab.device)
+            if width <= MAX_WORD:
+                packed = merge_words_from_bytes_fused(tab, raw_d, lens_d, self._u16_out)
+                self.stat_shard_fused[s] += 1
+            else:
+                packed = merge_words_from_bytes_packed(tab, raw_d, lens_d, self._u16_out)
+            out.append((packed, sl.stop - sl.start, int(lens[sl].sum())))
+        return out
 
     def _stage_launch(self, handle, keys, rows: int, tok_bound: int,
                       pending: list, redo_src=None) -> None:
-        """Start the copy of a launch's packed prefix (counts, then at
-        most ``tok_bound`` tokens) to the host and queue it."""
+        """Start the copies of a launch's packed prefixes to the host and
+        queue them: each shard's counts, then at most its own token
+        bound of tokens."""
         self.stat_device_bytes += int(tok_bound)
-        need = min(rows + int(tok_bound), handle.shape[0])
-        pending.append(
-            (self._start_copy(handle[:need]), keys, rows, tok_bound, redo_src)
-        )
+        staged = [self._start_copy(packed[: min(r + b, packed.shape[0])]) for packed, r, b in handle]
+        pending.append((staged, keys, [r for _p, r, _b in handle], tok_bound, redo_src))
 
     def _start_copy(self, dev: torch.Tensor):
         """(host tensor, CUDA event or None).  Launches happen on the main
@@ -674,18 +735,26 @@ class TorchTokenizer:
         compacted tokens); fill spans and the word cache.  ``results``
         holds copies the drainer already waited for."""
         if results is None:
-            results = [self._host_view(staged) for staged, *_rest in pending]
+            results = [[self._host_view(s) for s in staged] for staged, *_rest in pending]
         wcache = self._word_cache
-        for (_staged, keys, rows, _tok_bound, redo_src), packed in zip(
+        for (_staged, keys, shard_rows, _tok_bound, redo_src), parts in zip(
             pending, results
         ):
             k = len(keys)
-            counts_raw = packed[:k].astype(np.int64)
+            # each shard's prefix: the counts of its rows, then its tokens;
+            # the keys fill the first k rows of the block
+            count_parts, tok_parts = [], []
+            lo = 0
+            for packed, rows in zip(parts, shard_rows):
+                c = packed[: min(max(k - lo, 0), rows)].astype(np.int64)
+                count_parts.append(c)
+                tok_parts.append(packed[rows : rows + int((c & 0x7FFF).sum())])
+                lo += rows
+            counts_raw = np.concatenate(count_parts)
             # bit 0x8000 is the TPU kernel's partial-table divergence flag;
             # the full-table probe never sets it
             counts = counts_raw & 0x7FFF
-            total = int(counts.sum())
-            toks = packed[rows : rows + total]
+            toks = np.concatenate(tok_parts)
             base = self._pool_append_flat(toks.astype(np.int32))
             starts = base + np.concatenate(([0], np.cumsum(counts)[:-1]))
             key_arr = np.asarray(keys, dtype=np.int64)
@@ -806,7 +875,8 @@ class TorchTokenizer:
                     return
                 idx, staged = item
                 try:
-                    drain_results[idx] = self._host_view(staged)
+                    # one event per shard of the launch
+                    drain_results[idx] = [self._host_view(s) for s in staged]
                 except BaseException as e:  # re-raised on the main thread
                     drain_results[idx] = e
 

@@ -33,7 +33,12 @@ speculative scan chunks, a deep candidate table and targeted probes:
 see ``_distributed_train_string``.
 
 Each op is written as per-shard phases with the collectives between
-them, where ``shard_map`` hides those boundaries in the reference.
+them, where ``shard_map`` hides those boundaries in the reference.  On a
+mesh that spans processes (``multihost.global_data_mesh``) each process
+holds its own shards of the corpus, which every process passes whole,
+the collectives cross processes, and every process runs the same host
+driver on the same replicated results; the host merge of a spelling
+past ``MAXC`` compositions is single-process only, as in the reference.
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ import os
 import numpy as np
 import torch
 
-from .collectives import all_gather, axis_index, pmax, psum
+from .collectives import all_gather, all_gather_ragged, axis_index, pmax, psum
 from .mesh import DataMesh, shard_batch
 
 # torch has no multi-key sort, where the reference sorts (id1, id2, pos)
@@ -154,7 +159,7 @@ def _make_shard_ops(K: int, mesh: DataMesh, k_top: int = 1024) -> dict:
             return [(ids, torch.cat([ids[1:], ids.new_full((1,), -1)]), None)]
         # shards can empty out late in training: the halo is the first
         # element of the NEAREST NON-EMPTY successor (:107-117)
-        firsts = all_gather([ids[0] for ids in shards])
+        firsts = all_gather([ids[0] for ids in shards], mesh)
         shard_ids = torch.arange(n_dev, dtype=torch.int32, device=dev0)
         out = []
         for s, ids in zip(axis_index(mesh), shards):
@@ -267,7 +272,7 @@ def _make_shard_ops(K: int, mesh: DataMesh, k_top: int = 1024) -> dict:
             dcnts.append(length.new_zeros(2 * n).scatter_(0, tgt, length)[:n])
             dlasts.append(sp.new_full((2 * n,), -1).scatter_(0, tgt, sp)[:n])
             tops.append(_top_k(dcnts[-1], k))
-        gkey = all_gather([d.index_select(0, topi) for d, (_v, topi) in zip(dkeys, tops)]).reshape(-1)
+        gkey = all_gather([d.index_select(0, topi) for d, (_v, topi) in zip(dkeys, tops)], mesh).reshape(-1)
         cnts, shs, rows = [], [], []
         for s, dkey, dcnt in zip(axis_index(mesh), dkeys, dcnts):
             g = gkey.to(dkey.device)
@@ -278,12 +283,12 @@ def _make_shard_ops(K: int, mesh: DataMesh, k_top: int = 1024) -> dict:
             cnts.append(torch.where(hit, dcnt.index_select(0, f), 0))
             shs.append(torch.where(hit, s, -1).to(torch.int32))
             rows.append((hit, f))
-        cnt, sh = psum(cnts), pmax(shs)
+        cnt, sh = psum(cnts, mesh), pmax(shs, mesh)
         lpos = pmax([
             torch.where(hit & (sh.to(hit.device) == s), dlast.index_select(0, f), -1).to(torch.int32)
             for s, (hit, f), dlast in zip(axis_index(mesh), rows, dlasts)
-        ])
-        bound = psum([topv[k - 1] for topv, _i in tops])
+        ], mesh)
+        bound = psum([topv[k - 1] for topv, _i in tops], mesh)
         return (
             (gkey >> ID_BITS).to(torch.int32), (gkey & ID_MASK).to(torch.int32),
             cnt, sh, lpos, bound,
@@ -370,12 +375,12 @@ def _make_shard_ops(K: int, mesh: DataMesh, k_top: int = 1024) -> dict:
             row = first.to(a.device)
             cnts.append(cnt.index_select(0, row))
             lasts.append(last.index_select(0, row))
-        cnt = psum(cnts)
-        sh = pmax([torch.where(last >= 0, s, -1).to(torch.int32) for s, last in zip(axis_index(mesh), lasts)])
+        cnt = psum(cnts, mesh)
+        sh = pmax([torch.where(last >= 0, s, -1).to(torch.int32) for s, last in zip(axis_index(mesh), lasts)], mesh)
         lp = pmax([
             torch.where((last >= 0) & (sh.to(last.device) == s), last, -1)
             for s, last in zip(axis_index(mesh), lasts)
-        ])
+        ], mesh)
         return cnt, sh, lp
 
     def group_pick(shards, gh, gp):
@@ -397,6 +402,10 @@ def _make_shard_ops(K: int, mesh: DataMesh, k_top: int = 1024) -> dict:
         for s, (a, b, _lv) in zip(axis_index(mesh), _pair_operands(shards)):
             valid = (a >= 0) & (b >= 0)
             if not bool(valid.any()):
+                none = a.new_zeros(0, dtype=torch.int64)
+                for out in (keys, cnts, lasts):
+                    out.append(none)
+                hashed.append((none, none))
                 continue
             pos = torch.arange(a.shape[0], device=a.device)[valid]
             a, b = a[valid].long(), b[valid].long()
@@ -408,11 +417,12 @@ def _make_shard_ops(K: int, mesh: DataMesh, k_top: int = 1024) -> dict:
             cnts.append(torch.diff(ends, prepend=ends.new_full((1,), -1)))
             lasts.append((s << 32) | pos.index_select(0, order).index_select(0, ends))
             hashed.append((g, (a << ID_BITS) | b))
-        if not keys:
+        # the runs of every shard, ragged, on the first local device
+        key = all_gather_ragged(keys, mesh)
+        if key.shape[0] == 0:
             return None
-        key = torch.cat([k.to(dev0) for k in keys])
-        cnt = torch.cat([c.to(dev0) for c in cnts])
-        last = torch.cat([x.to(dev0) for x in lasts])
+        cnt = all_gather_ragged(cnts, mesh)
+        last = all_gather_ragged(lasts, mesh)
         if n_dev > 1:
             key, order = torch.sort(key, stable=True)
             first = torch.cat([key.new_ones(1, dtype=torch.bool), key[1:] != key[:-1]])
@@ -424,7 +434,7 @@ def _make_shard_ops(K: int, mesh: DataMesh, k_top: int = 1024) -> dict:
         m = cnt.max()
         j = torch.argmin(torch.where(cnt == m, last, torch.iinfo(torch.int64).max))
         wkey = key[j]
-        pairs = torch.unique(torch.cat([pk[g == wkey.to(g.device)].to(dev0) for g, pk in hashed]))
+        pairs = torch.unique(all_gather_ragged([pk[g == wkey.to(g.device)] for g, pk in hashed], mesh))
         return int(m), int(last[j]), pairs.cpu().numpy()
 
     def _apply_match(shards, matches, lastvalids, new_id):
@@ -449,7 +459,7 @@ def _make_shard_ops(K: int, mesh: DataMesh, k_top: int = 1024) -> dict:
             empty = lastvalid < 0
             outs.append(torch.stack([~empty & _at(take0, last), empty | _at(take1, last)]))
             chains.append((take0, take1))
-        oo = all_gather(outs)  # [D, 2]
+        oo = all_gather(outs, mesh)  # [D, 2]
         carry = oo.new_zeros(())
         carries = [carry]
         for s in range(n_dev - 1):
@@ -501,7 +511,7 @@ def make_train_step(
         if use_candidates:
             return ops["pick_candidates"](*ops["count_candidates"](ids))
         hists, occs = ops["count_shard"](ids)
-        return (*ops["pick_best"](psum(hists), pmax(occs)), certified)
+        return (*ops["pick_best"](psum(hists, mesh), pmax(occs, mesh)), certified)
 
     def fused_step(ids, new_id):
         id1, id2, cnt, ok = train_step(ids)
@@ -612,9 +622,30 @@ def make_string_scan_step(mesh: DataMesh, S: int, k_top: int = 1024):
     return scan_fn
 
 
-def _fetch_global(ids: list[torch.Tensor]) -> np.ndarray:
-    """The sharded array on the host, shard after shard."""
+def _fetch_global(ids: list[torch.Tensor], mesh: DataMesh) -> np.ndarray:
+    """The sharded array on the host, shard after shard: gathered from
+    every process when the mesh spans processes (the reference's
+    ``process_allgather``, :1631-1641)."""
+    if mesh.process_count > 1:
+        return all_gather(ids, mesh).cpu().numpy().reshape(-1)
     return np.concatenate([s.cpu().numpy() for s in ids])
+
+
+def _write_checkpoint(str2id: dict, path: str, mesh: DataMesh, log_lines) -> None:
+    """The vocab snapshot at ``path`` and the merge log at ``path +
+    ".merges"``, each replaced atomically.  Every process writes both,
+    as the reference's do; on a mesh that spans processes each first
+    writes files of its own, so that processes sharing a file system
+    never replace one another's half-written file."""
+    from ..train.common import save_checkpoint
+
+    own = f".p{mesh.process_index}" if mesh.process_count > 1 else ""
+    save_checkpoint(str2id, path + own)
+    if own:
+        os.replace(path + own, path)
+    with open(path + ".merges.tmp" + own, "w", encoding="utf-8") as f:
+        f.writelines(log_lines)
+    os.replace(path + ".merges.tmp" + own, path + ".merges")
 
 
 def _global_stream(ids_np: np.ndarray) -> np.ndarray:
@@ -729,15 +760,9 @@ def distributed_bbpe_train(
             print(f"resumed {len(merge_log)} merges from {checkpoint_path}")
 
     def checkpoint() -> None:
-        if checkpoint_path is None:
-            return
-        from ..train.common import save_checkpoint
-
-        save_checkpoint(str2id, checkpoint_path)
-        with open(checkpoint_path + ".merges.tmp", "w", encoding="utf-8") as f:
-            for id1, id2, new_id in merge_log:
-                f.write(f"{id1} {id2} {new_id}\n")
-        os.replace(checkpoint_path + ".merges.tmp", checkpoint_path + ".merges")
+        if checkpoint_path is not None:
+            _write_checkpoint(str2id, checkpoint_path, mesh,
+                              (f"{id1} {id2} {new_id}\n" for id1, id2, new_id in merge_log))
 
     merges_since_ckpt = 0
     prev_stop_key = None
@@ -827,7 +852,7 @@ def distributed_bbpe_train(
                     # uncertifiable even single-step: exact host pick
                     # (numpy over the downloaded stream), then the
                     # device applies the merge as usual
-                    picked = _host_exact_pick(_fetch_global(ids))
+                    picked = _host_exact_pick(_fetch_global(ids, mesh))
                     if picked is None:
                         done = True
                         break
@@ -852,7 +877,7 @@ def distributed_bbpe_train(
         # drop the pad tail all shards share: it holds no pair, and every
         # op's work then follows the live length (the results do not
         # change; the last valid element's position in a shard does not)
-        live = int(pmax([(s >= 0).sum() for s in new_ids]))
+        live = int(pmax([(s >= 0).sum() for s in new_ids], mesh))
         ids = [s[: max(live, 1)] for s in new_ids]
     checkpoint()
     return str2id
@@ -1111,7 +1136,13 @@ def _distributed_train_string(
         # a winning spelling with > MAXC compositions: merged on the
         # host and resharded
         nonlocal ids
-        new_np = _host_apply_multi(_fetch_global(ids), comps, g, n_dev)
+        if mesh.process_count > 1:
+            raise NotImplementedError(
+                "a winning spelling with more than MAXC compositions "
+                "requires the host merge path, which is single-process "
+                "only"
+            )
+        new_np = _host_apply_multi(_fetch_global(ids, mesh), comps, g, n_dev)
         ids = shard_batch(mesh, new_np)
 
     def apply_winner(win_s: bytes):
@@ -1125,19 +1156,9 @@ def _distributed_train_string(
         return g
 
     def checkpoint() -> None:
-        if checkpoint_path is None:
-            return
-        from ..train.common import save_checkpoint
-
-        save_checkpoint(str2id, checkpoint_path)
-        with open(
-            checkpoint_path + ".merges.tmp", "w", encoding="utf-8"
-        ) as f:
-            for s in merge_log:
-                f.write("s " + s.hex() + "\n")
-        os.replace(
-            checkpoint_path + ".merges.tmp", checkpoint_path + ".merges"
-        )
+        if checkpoint_path is not None:
+            _write_checkpoint(str2id, checkpoint_path, mesh,
+                              ("s " + s.hex() + "\n" for s in merge_log))
 
     def bookkeep(win_s: bytes, win_c: int, replay: bool = False) -> None:
         """``replay=True`` during resume: no checkpoint writes (a
@@ -1379,7 +1400,7 @@ def _distributed_train_string(
         spells = {csid2spell[int(k) >> 31] + csid2spell[int(k) & ID_MASK] for k in pairs}
         if len(spells) == 1:
             return spells.pop(), [win_c, last]
-        return _host_exact_string_pick(_fetch_global(ids_now), csid2spell)
+        return _host_exact_string_pick(_fetch_global(ids_now, mesh), csid2spell)
 
     def deep_pick(ids_now):
         """Standalone exact pick (no pending merge) — the scan and
@@ -1557,7 +1578,7 @@ def _distributed_train_string(
                 # every sub-step validated: commit the chunk, and drop
                 # the pad tail all shards share (each shard keeps one
                 # length: the rollback and _host_apply_multi rely on it)
-                live = int(pmax([(s >= 0).sum() for s in ids2]))
+                live = int(pmax([(s >= 0).sum() for s in ids2], mesh))
                 ids = [s[: max(live, trim_floor)] for s in ids2]
                 STRING_SCAN_STATS["committed"] += 1
                 continue
@@ -1688,7 +1709,7 @@ def _distributed_train_string(
         groups = _group_stats(pair_stats, csid2spell)
         win_s, (win_c, _win_l) = _pick_group(groups)
         if os.environ.get("HUTOKEN_TPU_TRAIN_SELFCHECK") == "1":
-            ref = _host_exact_string_pick(_fetch_global(ids), csid2spell)
+            ref = _host_exact_string_pick(_fetch_global(ids, mesh), csid2spell)
             if ref is not None and (
                 ref[0] != win_s or ref[1][0] != win_c
             ):

@@ -349,6 +349,21 @@ class DeviceTables:
     def device(self) -> torch.device:
         return (self.slots if self.wide else self.pslots).device
 
+    def to(self, device: torch.device | str) -> "DeviceTables":
+        """The same tables on ``device`` (``self`` when already there): a
+        replica for another shard's device, with no rebuild."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+
+        def move(t):
+            return None if t is None else t.to(device)
+
+        return DeviceTables(
+            pslots=move(self.pslots), slots=move(self.slots), probe_len=self.probe_len,
+            cap_mask=self.cap_mask, byte_seed=move(self.byte_seed), minsuper=move(self.minsuper),
+        )
+
 
 def minsuper_spelling_cap(byte_seed_ids: np.ndarray, id2str: dict[int, bytes]) -> int:
     """The longest spelling, in bytes, of a pair that can form inside a
