@@ -113,7 +113,30 @@ own:
    (c) two processes over gloo (``python3 chip_smoke.py --peer ...``),
    two shards each on the card, equal to the host cores on both ranks;
    (d) two NCCL processes, one per card, with two or more cards, else a
-   line saying it was not run.  Each sub-phase prints its time.
+   line saying it was not run.  Each sub-phase prints its time;
+11. the 16-bit repair on the card: two 258-line vocabularies with ids
+   past 0xFFFF (ids 70,000 / 70,001; a byte seed at 70,002 whose 16-bit
+   key is that of a real rule), each on the wide table with 32-bit
+   output: the wide fused kernel against its twin at widths 8, 16 and
+   32, and the engine under ``HUTOKEN_TPU_RAW=0`` and ``=1`` equal to
+   the native engine on every document (``encode_batch`` and
+   ``encode_batch_arrays``), the wide kernel launched and no other;
+   then the port's drivers, called in this process, the launch counts
+   zeroed before each and read after it (no new kernel): ``entry.main``:
+   ``entry()``'s fn on the card equal to ``compact_output`` of the fused
+   twin on the read prefix, the fused kernel launched, then
+   ``dryrun_multichip(4)`` on ``data_mesh(4)``;
+   ``bench.main(["--quick"])`` at the 24 MB headline, its last line the
+   four-key headline and its configuration line with conformance true,
+   the fused kernel launched; ``benchmark_train`` at 1 MB / 1,000 merges;
+   ``benchmark_sharded`` over ``data_mesh(1)``, ``(2)``, ``(4)``; three
+   ``profiler`` runs under ``torch.profiler`` into a temporary directory,
+   in a process of its own (its busy share must be above 0 and its
+   fused kernel launched, by the counts it prints);
+   ``profile_merge`` (the fused kernel at widths 8, 16, 32 and the eager
+   fixed point on 1,024 x 128 blocks, narrow and wide); ``profile_raw
+   --mode both`` on 8 MB with the raw path's host stages, ``seg_merge``
+   launched.  Each prints its lines and its time.
 
 The last two lines are the kernel summary and ``{"ok": true, ...}``.
 """
@@ -135,13 +158,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 from hutoken_tpu_torch.corpora import build_corpus, build_unique_corpus, write_wide_fixture  # noqa: E402
+from hutoken_tpu_torch.bench import raw_chunk  # noqa: E402
+from hutoken_tpu_torch.scripts.common import fixture_paths, kernel_ms, launch_counts, sync  # noqa: E402
 
 ZIPF_MB = 24
 UNIQUE_MB = 8
 BLOCK_WORDS = 16384  # ROW_BLOCKS[32] of the port's engine
 CHECK_WORDS = 12345  # odd on purpose: the kernel takes any word count
 ORACLE_SAMPLE = 40
-RAW_CHUNK = 1 << 22  # HUTOKEN_TPU_RAW_C's default: the raw path's chunk bytes
 MIXED_WORDS = 40000  # words per mixed check chunk
 LENGTH_RUNS = 2000  # 32-word runs in the every-length chunk
 HIGH_BYTES = bytes(range(0x20, 0x7F)) + bytes(range(0x80, 0x100))
@@ -169,6 +193,10 @@ STRING_PROFILE_TAIL = 32
 # multi-process sub-phase may take
 MESH_SHARDS = 4
 PEER_TIMEOUT = 300
+# phase 11: the 16-bit repair's vocabularies get enough distinct words
+# for two full blocks of each bucket (ROW_BLOCKS 16,384 / 1,024)
+HOLE_WORDS, HOLE_LONG_WORDS = 40000, 2500
+PROFILER_TIMEOUT = 300
 
 # ------------------------------------------------------------- inputs
 
@@ -176,17 +204,6 @@ PEER_TIMEOUT = 300
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
-
-
-def fixture_paths(name: str):
-    """(vocab, special chars, merges or None) of a committed fixture."""
-    stem = "bytelevel" if name == "small" else "bigvocab"
-    vocab = os.path.join(FIXTURES, f"{stem}-vocab.txt")
-    special = os.path.join(FIXTURES, f"{stem}-vocab_special_chars.txt")
-    merges = os.path.join(FIXTURES, "bigvocab-merges.txt") if name == "big-merges" else None
-    for p in (vocab, special, merges):
-        check(p is None or os.path.isfile(p), f"fixture file {p} is committed")
-    return vocab, special, merges
 
 
 def wide_paths(directory: str) -> dict:
@@ -261,14 +278,6 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def kernel_ms(fn) -> float:
-    """Device ms per call, with a sleep queued ahead so that the host's
-    enqueue never paces the loop (``profile_gather.cuda_time``)."""
-    from hutoken_tpu_torch import profile_gather as PG
-
-    return PG.cuda_time(fn)
 
 
 @contextlib.contextmanager
@@ -348,14 +357,14 @@ def fused_vs_plain(device: str, docs: list[str], label: str, configs: dict) -> d
 
     from hutoken_tpu_torch.ops import fused_merge as FM
     from hutoken_tpu_torch.ops.merge import compact_output
-    from hutoken_tpu_torch.tables import device_tables
+    from hutoken_tpu_torch.tables import device_tables, max_token_id
 
     rng = np.random.default_rng(0)
     result = {"max_abs_err": 0, "by": {}}
     for name, paths in configs.items():
         ctx, enc = load_config(paths)
         tab = device_tables(enc, ctx, device)
-        u16 = enc.vocab_size < 0xFFFF
+        u16 = max_token_id(ctx.vocab) < 0xFFFF  # the engine's rule
         check(tab.wide == name.startswith("wide-"), f"{name}: the table's layout")
         for width in (8, 16, 32):
             raw, lens = random_block(rng, CHECK_WORDS, width)
@@ -422,19 +431,6 @@ def mixed_chunk(rng, n_words: int):
             words = []
     docs.append("".join(words))
     blobs = [d.encode() for d in docs if d]
-    return np.frombuffer(b"".join(blobs), dtype=np.uint8), np.cumsum([len(b) for b in blobs])
-
-
-def raw_chunk(docs: list[str]):
-    """The unique corpus's first raw-path chunk: whole documents up to
-    RAW_CHUNK bytes, as the engine's producer fills one."""
-    blobs, size = [], 0
-    for d in docs:
-        b = d.encode()
-        if size + len(b) > RAW_CHUNK:
-            break
-        blobs.append(b)
-        size += len(b)
     return np.frombuffer(b"".join(blobs), dtype=np.uint8), np.cumsum([len(b) for b in blobs])
 
 
@@ -549,16 +545,6 @@ def seg_vs_plain(device: str, docs: list[str], words: list[str], label: str) -> 
 
 
 # ------------------------------------------------------- phases 4 to 7
-
-
-def launch_counts() -> dict:
-    """The encode kernels' launch counts (narrow fused, wide fused, seg)."""
-    from hutoken_tpu_torch.ops import fused_merge as FM
-    from hutoken_tpu_torch.ops import seg_merge as SM
-
-    f = FM.merge_words_from_bytes_fused
-    return {"fused_merge": f.launches, "fused_merge_wide": f.wide_launches,
-            "seg_merge": SM.seg_merge.launches}
 
 
 def zero_launch_counts() -> None:
@@ -1450,13 +1436,6 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def sync(device: str) -> None:
-    import torch
-
-    if device == "cuda":
-        torch.cuda.synchronize()
-
-
 def mesh_trainers(mesh) -> dict:
     """Both trainers at (c)'s config on ``mesh``: vocabs and seconds."""
     from hutoken_tpu_torch.parallel.train import distributed_bbpe_train, distributed_bpe_train
@@ -1588,6 +1567,196 @@ def multi_process_training(device: str, label: str) -> None:
               f"{torch.cuda.device_count()}")
 
 
+# ------------------------------------------------------------ phase 11
+
+
+def hole_ctx(directory: str, alias: bool):
+    """The vocabularies of the 16-bit repair's witness
+    (``tests/test_torch_quirk_vocab.py``), 258 lines each: the 256 GPT-2
+    byte seeds with "he" = 70,000 and "hel" = 70,001, or (``alias``)
+    byte "z" moved to 70,002 with "he" = 4,466 and "hec" = 257, whose
+    pairs all fit 16 bits but whose seed's 16-bit key is that of the
+    rule ("he", "c")."""
+    from hutoken_tpu_torch.bytemaps import gpt2_bytes_to_unicode, gpt2_special_chars_table
+    from hutoken_tpu_torch.context import TokenizerContext
+    from hutoken_tpu_torch.formats import write_special_chars_file, write_vocab_file
+
+    b2u = gpt2_bytes_to_unicode()
+
+    def spell(s: bytes) -> bytes:
+        return "".join(b2u[x] for x in s).encode("utf-8")
+
+    id2str = {b: b2u[b].encode("utf-8") for b in range(256)}
+    if alias:
+        id2str[70002] = id2str.pop(ord("z"))
+        id2str[4466], id2str[257] = spell(b"he"), spell(b"hec")
+    else:
+        id2str[70000], id2str[70001] = spell(b"he"), spell(b"hel")
+    name = "alias" if alias else "holes"
+    vocab = os.path.join(directory, f"{name}-vocab.txt")
+    special = os.path.join(directory, f"{name}-special.txt")
+    write_vocab_file(vocab, id2str)
+    write_special_chars_file(special, gpt2_special_chars_table())
+    return TokenizerContext.load(vocab, special, is_byte_encoder=True)
+
+
+def hole_docs() -> list[str]:
+    """``HOLE_WORDS`` words of 2-11 bytes and ``HOLE_LONG_WORDS`` of
+    33-100 bytes (the eager bucket), each "hel", "hec", "zc" or "z" and
+    letters of "abcdefgxyz", 50 and 20 words a document."""
+    rng = np.random.default_rng(11)
+    letters = np.array(list("abcdefgxyz"))
+    heads = ("hel", "hec", "zc", "z")
+
+    def words(n, lo, hi):
+        return [heads[h] + "".join(letters[rng.integers(0, 10, k)])
+                for h, k in zip(rng.integers(0, 4, n), rng.integers(lo, hi + 1, n))]
+
+    short, long = words(HOLE_WORDS, 1, 8), words(HOLE_LONG_WORDS, 30, 97)
+    return ([" ".join(short[i : i + 50]) for i in range(0, len(short), 50)]
+            + [" ".join(long[i : i + 20]) for i in range(0, len(long), 20)])
+
+
+def hole_vocabularies(device: str, label: str) -> None:
+    """Phase 11's first step: the 16-bit repair on the card.  On both
+    vocabularies of :func:`hole_ctx` the table is the wide one and the
+    output 32-bit; the wide fused kernel is held to its twin on the
+    read prefix at widths 8, 16 and 32, and the engine, under
+    ``HUTOKEN_TPU_RAW=0`` and ``=1``, to the native engine on every
+    document (and the oracle on a sample) through ``encode_batch`` and
+    ``encode_batch_arrays``, the counts zeroed right before each run:
+    the wide kernel launched, the narrow and segmented kernels not."""
+    import torch
+
+    from hutoken_tpu_torch import oracle
+    from hutoken_tpu_torch.engine import TorchTokenizer
+    from hutoken_tpu_torch.native import NativeEngine
+    from hutoken_tpu_torch.ops import fused_merge as FM
+    from hutoken_tpu_torch.ops.merge import compact_output
+    from hutoken_tpu_torch.tables import build_encoder_tables, device_tables, max_token_id
+
+    docs = hole_docs()
+    nbytes = sum(len(d.encode()) for d in docs)
+    rng = np.random.default_rng(0)
+    with tempfile.TemporaryDirectory(prefix="hutoken-holes-") as tmp:
+        for alias in (False, True):
+            t0 = time.perf_counter()
+            name = "alias" if alias else "holes"
+            top = 70002 if alias else 70001
+            ctx = hole_ctx(tmp, alias)
+            tab = device_tables(build_encoder_tables(ctx), ctx, device)
+            u16 = max_token_id(ctx.vocab) < 0xFFFF
+            check(ctx.vocab.size == 258 and tab.wide and not u16,
+                  f"(11) {name}: 258 lines, the wide table and 32-bit output")
+            for width in (8, 16, 32):
+                raw, lens = corpus_block(docs, rng, BLOCK_WORDS, width)
+                r, n = torch.from_numpy(raw).to(device), torch.from_numpy(lens).to(device)
+                ids, counts = FM.fused_merge_plain(tab, r, n)
+                want = compact_output(ids, u16)
+                read = BLOCK_WORDS + int(counts.sum())
+                got = FM.merge_words_from_bytes_fused(tab, r, n, u16)
+                check(torch.equal(got[:read], want[:read]), f"(11) {name}: wide kernel == twin, L={width}")
+                check(int(ids.max()) == top, f"(11) {name}: the block gives id {top} (L={width})")
+            want = NativeEngine(ctx).encode_batch(docs, 8)
+            sample = [int(i) for i in rng.choice(len(docs), ORACLE_SAMPLE, replace=False)]
+            check(all(want[i] == oracle.encode(ctx, docs[i]) for i in sample), f"(11) {name}: native == oracle")
+            check(sum(w.count(top) for w in want) > HOLE_WORDS // 8, f"(11) {name}: id {top} in the output")
+            for raw_env in ("0", "1"):
+                os.environ["HUTOKEN_TPU_RAW"] = raw_env
+                tok = TorchTokenizer(ctx, device=device)
+                zero_launch_counts()
+                got = tok.encode_batch(docs)
+                sync(device)
+                counts = launch_counts()
+                bad = sum(g != w for g, w in zip(got, want))
+                check(len(got) == len(docs) and bad == 0, f"(11) {name} RAW={raw_env}: {bad} documents differ")
+                check(counts["fused_merge_wide"] > 0 and counts["fused_merge"] == 0 and counts["seg_merge"] == 0,
+                      f"(11) {name} RAW={raw_env}: the wide kernel alone must run: {counts}")
+                check(tok.stat_device_words > 0, f"(11) {name} RAW={raw_env}: no word reached the card")
+                tok.reset_cache()
+                flat, offs = tok.encode_batch_arrays(docs)
+                check(all(flat[offs[i] : offs[i + 1]].tolist() == want[i] for i in range(len(docs))),
+                      f"(11) {name} RAW={raw_env}: encode_batch_arrays")
+                print(f"[{label}] (11) {name} vocabulary (max id {max_token_id(ctx.vocab)}, 258 lines) "
+                      f"RAW={raw_env}: {nbytes / 1e6:.2f} MB, {len(docs)} docs equal to native (all) and "
+                      f"oracle ({ORACLE_SAMPLE}), encode_batch_arrays too; wide kernel == twin at L=8/16/32; "
+                      f"launches {counts}; device words {tok.stat_device_words}", flush=True)
+            os.environ.pop("HUTOKEN_TPU_RAW", None)
+            print(f"(11) {name} vocabulary: sub-phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def run_driver(what: str, fn, want_kernels=()) -> str:
+    """One driver call, in this process, with the launch counts zeroed
+    right before it and read right after; its standard output is
+    captured, printed and returned.  Each kernel of ``want_kernels`` must
+    have launched in the call."""
+    import io
+
+    buf = io.StringIO()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = fn()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    out = buf.getvalue()
+    print(out, end="")
+    check(rc in (None, 0), f"{what}: returned {rc}")
+    for k in want_kernels:
+        check(counts[k] > 0, f"{what}: the {k} kernel never launched ({counts})")
+    print(f"(11) {what}: launches {counts}; sub-phase {secs:.1f} s", flush=True)
+    return out
+
+
+def drivers(label: str) -> None:
+    """Phase 11: the port's drivers (``hutoken_tpu_torch/entry.py``,
+    ``bench.py`` and ``scripts/``) in this process on the card, the
+    profiler in a process of its own."""
+    from hutoken_tpu_torch import bench, entry
+    from hutoken_tpu_torch.scripts import benchmark_sharded, benchmark_train, profile_merge, profile_raw
+
+    # entry()'s fn on the card held to the fused twin, then dryrun_multichip(4)
+    run_driver("entry", lambda: entry.main(["--shards", "4"]), ("fused_merge",))
+    out = run_driver("bench --quick", lambda: bench.main(["--quick"]), ("fused_merge",))
+    lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    check(set(lines[-1]) == {"metric", "value", "unit", "vs_baseline"} and lines[-1]["value"] > 0,
+          f"bench: the last line is the headline: {lines[-1]}")
+    full = [x for x in lines if x.get("metric") == lines[-1]["metric"] and "conformance" in x]
+    check(bool(full) and full[0]["conformance"] is True and full[0]["input_mb"] > 23.9,
+          "bench: the 24 MB headline ran with conformance on")
+    run_driver("benchmark_train --mb 1 --merges 1000",
+               lambda: benchmark_train.main(["--mb", "1", "--merges", "1000"]))
+    run_driver("benchmark_sharded", lambda: benchmark_sharded.main(["--shards", "1,2,4"]), ("fused_merge",))
+    profiler_process()
+    out = run_driver("profile_merge", lambda: profile_merge.main([]), ("fused_merge", "fused_merge_wide"))
+    check(out.count("eager fixed point") == 4, "profile_merge: two eager blocks on each table")
+    out = run_driver("profile_raw --mode both --mb 8",
+                     lambda: profile_raw.main(["--mode", "both", "--mb", "8"]), ("seg_merge", "fused_merge"))
+    check("[raw] run 1 host stages" in out, "profile_raw: the raw path's stage split")
+
+
+def profiler_process() -> None:
+    """``scripts/profiler.py --trace`` in a process of its own, as a user
+    runs it: it must write the trace, measure a busy share above 0 and
+    launch the fused kernel (its own counts, printed at its end)."""
+    import subprocess
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="hutoken-trace-") as tmp:
+        proc = subprocess.run(
+            [sys.executable, "-m", "hutoken_tpu_torch.scripts.profiler", "--iters", "3", "--trace", tmp],
+            cwd=HERE, capture_output=True, text=True, timeout=PROFILER_TIMEOUT)
+        print(proc.stdout, end="")
+        check(proc.returncode == 0, f"profiler: exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+        check(os.path.isfile(os.path.join(tmp, "trace.json")), "profiler: the Chrome trace")
+    share = [float(x.rsplit("busy share ", 1)[1]) for x in proc.stdout.splitlines() if "busy share " in x]
+    check(len(share) == 1 and share[0] > 0, f"profiler: one busy share above 0: {share}")
+    counts = [json.loads(x[len("launches "):]) for x in proc.stdout.splitlines() if x.startswith("launches {")]
+    check(len(counts) == 1 and counts[0]["fused_merge"] > 0, f"profiler: the fused kernel launched: {counts}")
+    print(f"(11) profiler --trace (own process): busy share {share[0]}; sub-phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def merge_entry(name, source, replaces, launches, per_run, res, key, by) -> dict:
     """A kernels-line entry of a merge kernel: ``res["by"][key]`` is the
     row its ms, plain_ms and bound come from; ``by`` names the other
@@ -1703,6 +1872,13 @@ def main() -> int:
     t0 = time.perf_counter()
     multi_process_training(device, label)
     print(f"multi-process training took {time.perf_counter() - t0:.1f} s")
+
+    # 11. the 16-bit repair's vocabularies, then the drivers; counts are
+    # zeroed inside, right before each
+    t0 = time.perf_counter()
+    hole_vocabularies(device, label)
+    drivers(label)
+    print(f"drivers took {time.perf_counter() - t0:.1f} s")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "hutoken_tpu"))
     check(not loaded, f"neither jax nor the JAX package was loaded: {loaded[:5]}")

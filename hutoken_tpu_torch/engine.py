@@ -68,6 +68,7 @@ from __future__ import annotations
 import os
 import queue
 import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -83,7 +84,7 @@ from .ops.split import RawChunkEncoder, find_cut, supported_alphabet
 from .parallel.mesh import DataMesh
 from .parallel.sharded import replicas, row_slices
 from .pretokenize import encode_remap, split_words, split_words_pattern
-from .tables import build_encoder_tables, device_tables
+from .tables import build_encoder_tables, device_tables, max_token_id
 from .utils.mem import tune_allocator
 
 # words of up to 32 bytes take the fused kernel, 33-128 bytes the eager
@@ -179,7 +180,14 @@ class TorchTokenizer:
         self._gid_start = np.full(1 << 15, -1, dtype=np.int64)
         self._gid_len = np.zeros(1 << 15, dtype=np.int64)
         self._prefix_run = None
-        self._u16_out = self.tables.vocab_size < 0xFFFF
+        # 16-bit output only when every id the encoder can emit fits:
+        # the largest id, not the line count (``vocab_size``), which a
+        # vocabulary with id holes keeps far below its top id.  The JAX
+        # engine gates on the line count (hutoken_tpu/engine.py:262) and
+        # cuts such ids; the port does not copy that.  ``device_tables``
+        # takes the wide table on the same rule, so the narrow table
+        # always writes 16-bit output.
+        self._u16_out = max_token_id(ctx.vocab) < 0xFFFF
         self._row_blocks = ROW_BLOCKS
         self._native_split_ok = load_native() is not None
         # seed elements (bytes, on the byte path) and words sent to the
@@ -194,6 +202,13 @@ class TorchTokenizer:
         # (alphabet or capacity), over_bucket (words > 32 bytes),
         # partial_flag (never, with the full-table probe)
         self.stat_host_cause: dict[str, int] = {}
+        # host seconds of the raw path by stage, summed over threads and
+        # runs: producer (its busy time; of it find_cut and alphabet),
+        # main_wait (the main thread waiting for a chunk), launch (upload
+        # and chunk program; of it nonzero_sync, the one host sync a
+        # chunk), copy_wait and splice (drainers), assembly
+        self.stat_raw_seconds: dict[str, float] = {}
+        self._stage_lock = threading.Lock()
         self._raw_enc = None
         # decode: the facade's backend="device" asks for the device path
         # without the HUTOKEN_TPU_DECODE override; the decoded-bytes table
@@ -349,6 +364,36 @@ class TorchTokenizer:
                 ([0], np.cumsum(flags.astype(np.int64) * len(run)))
             )
         return flat, doc_offs
+
+    def _add_seconds(self, stage: str, seconds: float) -> None:
+        with self._stage_lock:
+            self.stat_raw_seconds[stage] = self.stat_raw_seconds.get(stage, 0.0) + seconds
+
+    def warmup(self) -> None:
+        """Build the kernels and launch the primary block shape once,
+        ``BUCKETS[0]`` bytes x ``ROW_BLOCKS[BUCKETS[0]]`` zero-length rows
+        (an id block of pads on a char-mode table), then wait for every
+        shard's device: the counterpart of the JAX engine's compile
+        warmup (hutoken_tpu/engine.py:1561-1572), so that ``nvcc`` and
+        first-launch costs stay out of a timed run.  On the CUDA devices
+        it also builds the segmented kernel where the raw path may run.
+        On the CPU it runs the twins."""
+        b = BUCKETS[0]
+        rows = self._row_blocks[b]
+        if self.device.type == "cuda" and self.dev_tables.byte_seed is not None \
+                and not self.dev_tables.wide and self._mesh is None:
+            from .ops import seg_merge
+
+            seg_merge._library()
+        if self.dev_tables.byte_seed is not None:
+            handle = self._merge_bytes_block(
+                np.zeros((rows, b), dtype=np.uint8), np.zeros(rows, dtype=np.int32)
+            )
+        else:
+            handle = self._merge_block(np.full((rows, b), -1, dtype=np.int32))
+        for packed, _rows, _bound in handle:
+            if packed.device.type == "cuda":
+                torch.cuda.synchronize(packed.device)
 
     def reset_cache(self) -> None:
         """Drop all memoized word tokenizations (pool, dict cache, and
@@ -1040,6 +1085,15 @@ class TorchTokenizer:
         chunkq: queue.Queue = queue.Queue(maxsize=4)
 
         def _producer() -> None:
+            t_start = time.perf_counter()
+            blocked = cut_s = alpha_s = 0.0
+
+            def put(item) -> None:
+                nonlocal blocked
+                t = time.perf_counter()
+                chunkq.put(item)
+                blocked += time.perf_counter() - t
+
             try:
                 bufs: list[np.ndarray] = []
                 segs: list[int] = []
@@ -1047,15 +1101,18 @@ class TorchTokenizer:
                 size = 0
 
                 def emit() -> None:
-                    nonlocal bufs, segs, segdoc, size
+                    nonlocal bufs, segs, segdoc, size, alpha_s
                     if not size:
                         return
                     chunk = np.concatenate(bufs) if len(bufs) > 1 else bufs[0]
-                    chunkq.put((
+                    t = time.perf_counter()
+                    ok = supported_alphabet(chunk)
+                    alpha_s += time.perf_counter() - t
+                    put((
                         chunk,
                         np.asarray(segs, dtype=np.int32),
                         np.asarray(segdoc, dtype=np.int64),
-                        supported_alphabet(chunk),
+                        ok,
                     ))
                     bufs, segs, segdoc, size = [], [], [], 0
 
@@ -1075,7 +1132,9 @@ class TorchTokenizer:
                                 emit()
                             continue
                         # cut the oversized document at a safe word start
+                        t = time.perf_counter()
                         cut = find_cut(b, pos, pos + room)
+                        cut_s += time.perf_counter() - t
                         if cut < 0:
                             if size:
                                 emit()  # retry with a full chunk's room
@@ -1083,7 +1142,7 @@ class TorchTokenizer:
                             # no safe cut in a full chunk: the rest of the
                             # document goes to the host (the JAX engine sends
                             # the whole document, repeating a part already cut)
-                            chunkq.put((
+                            put((
                                 b[pos:],
                                 np.asarray([nb - pos], dtype=np.int32),
                                 np.asarray([di], dtype=np.int64),
@@ -1098,6 +1157,9 @@ class TorchTokenizer:
                         pos = cut
                         emit()
                 emit()
+                self._add_seconds("producer", time.perf_counter() - t_start - blocked)
+                self._add_seconds("find_cut", cut_s)
+                self._add_seconds("alphabet", alpha_s)
                 chunkq.put(None)
             except BaseException as e:  # re-raised on the main thread
                 chunkq.put(e)
@@ -1131,7 +1193,9 @@ class TorchTokenizer:
         metas: list = []
         try:
             while True:
+                t = time.perf_counter()
                 item = chunkq.get()
+                self._add_seconds("main_wait", time.perf_counter() - t)
                 if item is None:
                     break
                 if isinstance(item, BaseException):
@@ -1142,11 +1206,13 @@ class TorchTokenizer:
                     results[len(metas) - 1] = None
                     continue
                 sem.acquire()
+                t = time.perf_counter()
                 try:
                     handles = enc.launch(chunk, seg_ends)
                 except BaseException:
                     sem.release()
                     raise
+                self._add_seconds("launch", time.perf_counter() - t)
                 drainq.put((len(metas) - 1, chunk, handles))
         finally:
             drainq.put(None)
@@ -1159,6 +1225,7 @@ class TorchTokenizer:
                     except queue.Empty:
                         pass
 
+        t_asm = time.perf_counter()
         doc_counts = np.zeros(n_docs, dtype=np.int64)
         flat_parts: list[np.ndarray] = []
         cause = self.stat_host_cause
@@ -1181,6 +1248,7 @@ class TorchTokenizer:
             flat_parts.append(toks)
         flat = np.concatenate(flat_parts) if flat_parts else np.zeros(0, dtype=np.int32)
         doc_offs = np.concatenate((np.zeros(1, dtype=np.int64), np.cumsum(doc_counts)))
+        self._add_seconds("assembly", time.perf_counter() - t_asm)
         return flat, doc_offs, [False] * n_docs
 
     # ------------------------------------------------ python-split core

@@ -35,6 +35,8 @@ each equal to the original.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -214,7 +216,7 @@ def chunk_words(chunk: torch.Tensor, seg_ends: torch.Tensor):
 
 
 def encode_chunk(tab, chunk: torch.Tensor, seg_ends: torch.Tensor, *,
-                 Fcap: int, u16_out: bool):
+                 Fcap: int, u16_out: bool, add_seconds=None):
     """The raw chunk program (counterpart of ``_raw_encode_chunk_jit``,
     plain u16/i32 stream only).
 
@@ -230,10 +232,17 @@ def encode_chunk(tab, chunk: torch.Tensor, seg_ends: torch.Tensor, *,
       written; the host refuses the chunk otherwise);
     * ``toks``: the T ids in byte order, then filler; int16 holding
       uint16 bit patterns when ``u16_out``.
+
+    ``add_seconds(stage, seconds)``, when given, receives the host
+    seconds of ``chunk_words`` as ``nonzero_sync``: the wait for the
+    device to reach the chunk's one host sync.
     """
     n = chunk.shape[0]
     dev = chunk.device
+    t = time.perf_counter()
     word_start, word_len = chunk_words(chunk, seg_ends)
+    if add_seconds is not None:
+        add_seconds("nonzero_sync", time.perf_counter() - t)
     long_w = word_len > MAX_WORD
     # long words go to the kernel with length 0: it skips them
     ids = seg_merge(
@@ -294,7 +303,7 @@ class RawChunkEncoder:
         tok = self.tok
         meta, toks = encode_chunk(
             self.tab, tok._to_device(chunk_np), tok._to_device(seg_ends),
-            Fcap=self.Fcap, u16_out=self.u16,
+            Fcap=self.Fcap, u16_out=self.u16, add_seconds=tok._add_seconds,
         )
         # the stream's length T is on the device: copy all n slots back
         # rather than wait for the meta block first
@@ -310,11 +319,13 @@ class RawChunkEncoder:
 
         ``chunk_np`` must be the bytes given to :meth:`launch`."""
         meta_staged, toks_staged, n_docs, seg_ends = handles
+        t = time.perf_counter()
         meta = self.tok._host_view(meta_staged)
         W, T, F = (int(x) for x in meta[:3])
         if F > self.Fcap:
             return None
         toks = self.tok._host_view(toks_staged)[:T].astype(np.int32)
+        self.tok._add_seconds("copy_wait", time.perf_counter() - t)
         seg_counts = np.diff(meta[3 : 3 + n_docs].astype(np.int64), prepend=0)
         n = chunk_np.shape[0]
         stats = {
@@ -328,6 +339,7 @@ class RawChunkEncoder:
             return toks, seg_counts, stats
         fr = meta[3 + n_docs : 3 + n_docs + 3 * F].reshape(F, 3)
         # records come in byte order, so insert positions are sorted
+        t = time.perf_counter()
         parts: list[np.ndarray] = []
         cursor = 0
         for bstart, blen, tpos in fr.tolist():
@@ -342,4 +354,6 @@ class RawChunkEncoder:
             stats["over_bucket"] += blen
         parts.append(toks[cursor:])
         stats["device_bytes"] = n - stats["over_bucket"]
-        return np.concatenate(parts), seg_counts, stats
+        out = np.concatenate(parts)
+        self.tok._add_seconds("splice", time.perf_counter() - t)
+        return out, seg_counts, stats

@@ -23,10 +23,10 @@ array they build equal to the original's.  Their notes:
 
 :func:`device_tables` moves what the merge path reads onto a device, in
 one of two pair-table layouts chosen by the vocabulary: the narrow
-packed table (16-bit ids and ranks) that every vocabulary with ids and
-ranks below 0xFFFF keeps, and a wide table of 16-byte slots for the
-rest (100k+ vocabularies), which the JAX package serves with
-``MODE_PROBE`` and the R-matrix programs instead.
+packed table (16-bit ids and ranks) that every vocabulary whose ids and
+ranks all lie below 0xFFFF keeps, and a wide table of 16-byte slots for
+the rest (100k+ vocabularies, or a few ids past 16 bits), which the JAX
+package serves with ``MODE_PROBE`` and the R-matrix programs instead.
 """
 
 from __future__ import annotations
@@ -316,6 +316,13 @@ MAX_WIDE_RANK = (1 << 26) - 1
 KERNEL_WORD_BYTES = 32
 
 
+def max_token_id(vocab) -> int:
+    """The largest id of a vocabulary (-1 when it is empty): the bound of
+    every id the encoder can emit.  A vocabulary with id holes keeps its
+    line count (``vocab.size``) far below it."""
+    return max(max(vocab.id2str, default=-1), max(vocab.str2id.values(), default=-1))
+
+
 @dataclass(frozen=True)
 class DeviceTables:
     """Open-addressed pair table plus the byte LUT and the multi-merge
@@ -436,16 +443,25 @@ def device_tables(
 ) -> DeviceTables:
     """Move ``enc``'s pair table, byte LUT and (byte mode only) the
     minsuper bound to ``device``: the narrow packed table when every id
-    and rank fits 16 bits, else the wide table, rebuilt from
-    ``enc.pairs`` with a probe bound of ``WIDE_MAX_PROBE``."""
+    the encoder can emit and every rank fits 16 bits, else the wide
+    table, rebuilt from ``enc.pairs`` with a probe bound of
+    ``WIDE_MAX_PROBE``.
+
+    The emitted ids count, not only the pairs' ids: the narrow probe key
+    keeps 16 bits of each side, so a byte seed at 70,002 would probe as
+    4,466 and could hit the pair (4,466, b).  ``ctx`` None (tables built
+    by hand) bounds them by the pairs and the byte seeds alone."""
     pt = enc.pair_table
     device = torch.device(device)
     ms = None
     if enc.byte_seed_ids is not None:
         id2str = ctx.vocab.id2str
         ms = build_minsuper(enc.pairs, id2str, minsuper_spelling_cap(enc.byte_seed_ids, id2str))
+    top = -1 if ctx is None else max_token_id(ctx.vocab)
+    if enc.byte_seed_ids is not None and enc.byte_seed_ids.size:
+        top = max(top, int(enc.byte_seed_ids.max()))
     pslots = slots = None
-    if pt.packed_ok:
+    if pt.packed_ok and top < 0xFFFF:
         pkey, pval = pt.packed_arrays()
         ms_slot = np.zeros(pt.capacity, dtype=np.int32)
         if ms is not None:
