@@ -11,7 +11,7 @@ own:
 
 1. device: the card's name and power limit, torch and CUDA versions,
    and whether the native host library loaded;
-2. build: compiles the three kernel sources of ``hutoken_tpu_torch/csrc``
+2. build: compiles the four kernel sources of ``hutoken_tpu_torch/csrc``
    (one ``nvcc`` each, started together);
 3. kernel vs plain, on the same CUDA tensors, exact equality on the
    prefix the host reads: the fused merge, which writes the packed
@@ -87,7 +87,8 @@ own:
    vocab it fills: warmed by 200 merges on another corpus; (a)
    ``scripts/benchmark_train.py --mode string``'s config, 1 MB and 1,000
    merges on ``data_mesh()``, vocab and merge log equal, timed; (b) the
-   BASELINE, 4 MB and 5,000 merges, timed, its first 32 merges equal,
+   BASELINE's 4 MB to the first STRING_FULL_MERGES (1,000) of its 5,000
+   merges, timed, its first 32 merges equal,
    then (a) once more under ``torch.profiler`` windows over four scan
    chunks and 32 tail-loop merges (device time against wall, busy
    share, top ops); each timed run prints merges/s,
@@ -133,10 +134,28 @@ own:
    ``profiler`` runs under ``torch.profiler`` into a temporary directory,
    in a process of its own (its busy share must be above 0 and its
    fused kernel launched, by the counts it prints);
-   ``profile_merge`` (the fused kernel at widths 8, 16, 32 and the eager
-   fixed point on 1,024 x 128 blocks, narrow and wide); ``profile_raw
-   --mode both`` on 8 MB with the raw path's host stages, ``seg_merge``
-   launched.  Each prints its lines and its time.
+   ``profile_merge`` (the fused kernel at widths 8, 16, 32, the id merge
+   kernel against its eager twin on 1,024 x 128 blocks, narrow and wide,
+   and on a 16,384 x 32 char-mode block); ``profile_raw --mode both`` on
+   8 MB with the raw path's host stages, ``seg_merge`` launched.  Each
+   prints its lines and its time;
+12. char mode and long words through the id merge kernel
+   (``ops/id_merge.py``, ``csrc/id_merge.cu``): (a) the generated
+   32,000-id char-mode vocabulary (``corpora.write_char_fixture``);
+   (b) the facade on it (``is_byte_encoder=False``, no prefix: the
+   pipelined core) over the Zipf and the unique corpus, then with
+   ``prefix="▁"`` (the Python core) over a 2 MB slice of the Zipf one;
+   (c) byte mode under ``HUTOKEN_TPU_RAW=0`` on Zipf documents each with
+   eight 33-128-byte compounds of Zipf words, on big-merges (narrow) and
+   the 100,256-id wide-merges table.  Every document equal to the
+   native engine, a sample of 40 to the oracle; the id kernel (narrow or
+   wide, and in (c) the fused kernel) launched, the eager fixed point
+   never called, cold MB/s printed; (d) the kernel against its twin,
+   exactly, at the engine's shapes: 16,384 x 32 char-mode ids of corpus
+   words, 1,024 x 128 compound bytes on both tables, 1,024 x 128 ids on
+   hand-built wide rules ranked from 2^24 with each row's first minimum
+   at a position of 32 or more (``corpora.high_rank_rules``), and
+   1,024 x 128 pad rows; each timed beside its twin and its bound.
 
 The last two lines are the kernel summary and ``{"ok": true, ...}``.
 """
@@ -157,7 +176,12 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-from hutoken_tpu_torch.corpora import build_corpus, build_unique_corpus, write_wide_fixture  # noqa: E402
+from hutoken_tpu_torch.corpora import (  # noqa: E402
+    build_corpus,
+    build_unique_corpus,
+    write_char_fixture,
+    write_wide_fixture,
+)
 from hutoken_tpu_torch.bench import raw_chunk  # noqa: E402
 from hutoken_tpu_torch.scripts.common import fixture_paths, kernel_ms, launch_counts, sync  # noqa: E402
 
@@ -184,6 +208,8 @@ PROFILE_CHUNKS = 4
 # string's config (1 MB, 1,000 merges, seed 0) and at the BASELINE; the
 # four-shard runs cut the candidate tables to STRING_DEPTH rows a shard
 STRING_MERGES = 1000
+# the BASELINE's 4 MB is trained to this prefix of its 5,000 merges
+STRING_FULL_MERGES = 1000
 STRING_WARM_MERGES = 200
 STRING_DEPTH = 16
 STRING_SHARD_MERGES = 300
@@ -197,6 +223,13 @@ PEER_TIMEOUT = 300
 # for two full blocks of each bucket (ROW_BLOCKS 16,384 / 1,024)
 HOLE_WORDS, HOLE_LONG_WORDS = 40000, 2500
 PROFILER_TIMEOUT = 300
+# phase 12: the slice encoded with the "▁" prefix (the Python core), the
+# long-word documents (Zipf documents, each with LONG_PER_DOC compounds
+# of 33-128 bytes), and the id kernel's block shapes in the engine
+# (ROW_BLOCKS)
+CHAR_PREFIX_MB = 2.0
+LONG_DOCS, LONG_PER_DOC = 2000, 8
+ID_BLOCKS = ((16384, 32), (1024, 128))
 
 # ------------------------------------------------------------- inputs
 
@@ -282,8 +315,10 @@ def time_ms(fn, reps: int) -> float:
 
 @contextlib.contextmanager
 def probe_log():
-    """Record every (left, right) pair the plain twins probe."""
+    """Record every (left, right) pair the plain twins probe (the fused
+    twin's rounds and ``merge_fixed_point``)."""
     from hutoken_tpu_torch.ops import fused_merge as FM
+    from hutoken_tpu_torch.ops import merge as TM
 
     pairs = []
     real = FM.probe_pairs
@@ -292,21 +327,22 @@ def probe_log():
         pairs.append((a.reshape(-1), b.reshape(-1)))
         return real(tab, a, b)
 
-    FM.probe_pairs = logged
+    FM.probe_pairs = TM.probe_pairs = logged
     try:
         yield pairs
     finally:
-        FM.probe_pairs = real
+        FM.probe_pairs = TM.probe_pairs = real
 
 
-def probed_slot_bytes(tab, pairs) -> int:
+def probed_slot_bytes(tab, pairs, with_minsuper: bool = True) -> int:
     """Pair-table bytes that the merge must read for these pairs, counted
     over the distinct slots the probe visits (from the hash slot up to
     the hit or the first empty slot).  Narrow table: a 4-byte key per
     visited slot, a 4-byte value per hit slot and, with a minsuper bound,
     4 bytes per distinct hit rank; the kernel's 16-byte interleaved slot
     is its own choice, not the function's need.  Wide table: a whole
-    16-byte slot per visited slot, since its key is both 32-bit ids."""
+    16-byte slot per visited slot, since its key is both 32-bit ids.
+    ``with_minsuper`` False: a merge that never reads the bound."""
     import torch
 
     from hutoken_tpu_torch.ops.merge import hash_slots, pack_key
@@ -333,7 +369,7 @@ def probed_slot_bytes(tab, pairs) -> int:
     if tab.wide:
         return 16 * int(touched.sum())
     nbytes = 4 * int(touched.sum()) + 4 * int(hits.sum())
-    if tab.minsuper is not None:
+    if tab.minsuper is not None and with_minsuper:
         ranks = (tab.pslots[hits, 1] >> 16) & 0xFFFF
         nbytes += 4 * int(torch.unique(ranks).numel())
     return nbytes
@@ -548,25 +584,43 @@ def seg_vs_plain(device: str, docs: list[str], words: list[str], label: str) -> 
 
 
 def zero_launch_counts() -> None:
+    """Every kernel's launch count, and the eager fixed point's calls."""
     from hutoken_tpu_torch.ops import fused_merge as FM
+    from hutoken_tpu_torch.ops import id_merge as IM
+    from hutoken_tpu_torch.ops import merge as TM
     from hutoken_tpu_torch.ops import seg_merge as SM
 
     f = FM.merge_words_from_bytes_fused
     f.launches = f.wide_launches = SM.seg_merge.launches = 0
+    IM.id_merge.launches = IM.id_merge.wide_launches = TM.merge_fixed_point.calls = 0
+
+
+# the kernels an encode path must launch, and those it must not
+PATHS = {
+    "raw": (("seg_merge",), ()),
+    "pipeline": (("fused_merge",), ("fused_merge_wide", "seg_merge")),
+    "wide": (("fused_merge_wide",), ("fused_merge", "seg_merge")),
+    "char": (("id_merge",), ("fused_merge", "fused_merge_wide", "seg_merge", "id_merge_wide")),
+    "long": (("fused_merge", "id_merge"), ("fused_merge_wide", "seg_merge", "id_merge_wide")),
+    "long-wide": (("fused_merge_wide", "id_merge_wide"), ("fused_merge", "seg_merge", "id_merge")),
+}
 
 
 def encode_run(native, docs: list[str], what: str, want_path: str, label: str):
     """One main-path run through the initialized facade: a checked run,
     then a timed cold one, the counts zeroed right before each and read
-    right after.  ``want_path`` is the path it must take: "raw" (the
-    segmented kernel), "pipeline" (the fused kernel) or "wide" (the wide
-    fused kernel).  ``native`` is the native engine of the same
-    configuration.  Returns (ids per document, the cold run's launch
-    counts, the largest id)."""
+    right after.  ``want_path`` is the path it must take, a key of
+    ``PATHS``: "raw" (the segmented kernel), "pipeline" (the fused
+    kernel), "wide" (the wide fused kernel), "char" (the id kernel),
+    "long" (the fused and the id kernel) or "long-wide" (both wide); the
+    eager fixed point is never called.  ``native`` is the native engine
+    of the same configuration.  Returns (ids per document, the cold run's
+    launch counts, the largest id)."""
     import torch
 
     import hutoken_tpu_torch as hutoken
     from hutoken_tpu_torch import oracle
+    from hutoken_tpu_torch.ops.merge import merge_fixed_point
 
     engine = hutoken._get_engine()
     nbytes = sum(len(d.encode()) for d in docs)
@@ -591,22 +645,25 @@ def encode_run(native, docs: list[str], what: str, want_path: str, label: str):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = launch_counts()
+    eager = merge_fixed_point.calls
     check(counts == first, f"{what}: a cold run launches as the first run did ({counts} vs {first})")
+    check(eager == 0, f"{what}: the eager fixed point ran {eager} times on the card")
     share = (engine.stat_device_bytes - dev0) / nbytes
-    fused, wide, seg = counts["fused_merge"], counts["fused_merge_wide"], counts["seg_merge"]
+    must, never = PATHS[want_path]
+    check(all(counts[k] > 0 for k in must) and not any(counts[k] for k in never),
+          f"{what}: the {want_path} path must launch {must} and none of {never}: {counts}")
     if want_path == "raw":
-        check(seg > 0, f"{what}: the raw path never launched the segmented kernel")
         check(share > 0.9, f"{what}: only {share:.4f} of the bytes reached the device")
         check(engine.stat_host_cause.get("raw_host_chunk", 0) == 0, f"{what}: a chunk went to the host")
-    elif want_path == "wide":
-        check(wide > 0 and fused == 0 and seg == 0, f"{what}: the wide kernel alone must run: {counts}")
-    else:
-        check(fused > 0 and wide == 0 and seg == 0, f"{what}: the word pipeline did not run the fused kernel")
-    core = "raw" if want_path == "raw" else ("pipelined" if engine._native_split_ok else "python")
+    ctx = hutoken._ctx
+    pipelined = engine._native_split_ok and ctx.prefix is None and ctx.compiled_pattern is None
+    core = "raw" if want_path == "raw" else ("pipelined" if pipelined else "python")
     print(f"[{label}] main path {what}: {nbytes / 1e6:.1f} MB, "
           f"{len(docs)} docs: equal to native (all docs) and oracle ({ORACLE_SAMPLE}); "
           f"{core} core; cold run {nbytes / 1e6 / dt:.2f} MB/s ({dt:.3f} s); "
-          f"device byte share {share:.4f}; launches per run fused {fused}, wide {wide}, seg {seg}; "
+          f"device byte share {share:.4f}; launches per run fused {counts['fused_merge']}, "
+          f"wide {counts['fused_merge_wide']}, seg {counts['seg_merge']}, id {counts['id_merge']}, "
+          f"id wide {counts['id_merge_wide']}, eager fixed point calls {eager}; "
           f"max id {max_id}; host bytes by cause {engine.stat_host_cause}")
     return got, counts, max_id
 
@@ -625,7 +682,7 @@ def main_path(device: str, zipf: list[str], unique: list[str], label: str):
         ("big-vocab", "zipf", zipf, "auto", "pipeline"),
         ("big-vocab", "unique", unique, "auto", "raw"),
     ]
-    launches = {"fused_merge": 0, "fused_merge_wide": 0, "seg_merge": 0}
+    launches = {k: 0 for k in launch_counts()}
     per_run = {k: {} for k in launches}
     for config, cname, docs, raw_env, want_path in runs:
         os.environ["HUTOKEN_TPU_RAW"] = raw_env
@@ -1273,11 +1330,13 @@ def string_training(label: str) -> None:
               f"{len(want_log) / host_s:.2f} merges/s ({host_s:.1f} s); sub-phase "
               f"{time.perf_counter() - t0:.1f} s")
 
-        # (b) the BASELINE, then a profiled run of (a)'s config
+        # (b) the BASELINE's corpus to a prefix of its merges, then a
+        # profiled run of (a)'s config
         t0 = time.perf_counter()
         data4 = train_corpus(FULL_MB, 0)
         with StringTrace() as tr:
-            got4, log4, dev4_s, stats4 = device_string_train(data4, 256 + FULL_MERGES, mesh, ck("full.txt"))
+            got4, log4, dev4_s, stats4 = device_string_train(data4, 256 + STRING_FULL_MERGES, mesh,
+                                                             ck("full.txt"))
         _w, want_log4, _s = host_string_train(data4, 256 + PREFIX_MERGES)
         check(log4[:PREFIX_MERGES] == want_log4, f"(b) the first {PREFIX_MERGES} string merges == host core")
         print(f"[{label}] (b) string training {len(data4)} B, {len(log4)} merges to vocab {len(got4)}: "
@@ -1728,8 +1787,10 @@ def drivers(label: str) -> None:
                lambda: benchmark_train.main(["--mb", "1", "--merges", "1000"]))
     run_driver("benchmark_sharded", lambda: benchmark_sharded.main(["--shards", "1,2,4"]), ("fused_merge",))
     profiler_process()
-    out = run_driver("profile_merge", lambda: profile_merge.main([]), ("fused_merge", "fused_merge_wide"))
-    check(out.count("eager fixed point") == 4, "profile_merge: two eager blocks on each table")
+    out = run_driver("profile_merge", lambda: profile_merge.main([]),
+                     ("fused_merge", "fused_merge_wide", "id_merge", "id_merge_wide"))
+    check(out.count("eager fixed point") == 5 and out.count("equal to the eager twin") == 5,
+          "profile_merge: two long-word blocks on each table and a char-mode block, kernel and twin")
     out = run_driver("profile_raw --mode both --mb 8",
                      lambda: profile_raw.main(["--mode", "both", "--mb", "8"]), ("seg_merge", "fused_merge"))
     check("[raw] run 1 host stages" in out, "profile_raw: the raw path's stage split")
@@ -1785,6 +1846,180 @@ def merge_entry(name, source, replaces, launches, per_run, res, key, by) -> dict
     }
 
 
+# ------------------------------------------------------------ phase 12
+
+
+def docs_mb(docs: list[str], mb: float) -> list[str]:
+    """The first documents of ``docs`` that hold ``mb`` MB."""
+    out, total = [], 0
+    for d in docs:
+        if total >= mb * 1e6:
+            break
+        out.append(d)
+        total += len(d.encode())
+    return out
+
+
+def long_word_docs(zipf: list[str]) -> list[str]:
+    """LONG_DOCS Zipf documents, each followed by LONG_PER_DOC compounds
+    of 33-128 bytes glued from the corpus's alphabetic words
+    (``profile_merge.compound_words``)."""
+    from hutoken_tpu_torch.scripts.profile_merge import compound_words
+
+    comp = [c[1:].decode() for c in compound_words(zipf, LONG_DOCS * LONG_PER_DOC)]
+    k = LONG_PER_DOC
+    return [zipf[i] + " " + " ".join(comp[i * k:(i + 1) * k]) for i in range(LONG_DOCS)]
+
+
+def id_runs(device: str, runs: list, label: str) -> dict:
+    """(b) and (c): one facade ``initialize`` a run, then ``encode_run``
+    (counts zeroed right before each of its runs and read right after).
+    ``runs`` holds (name, (vocab, special, merges or None), byte mode,
+    prefix, docs, HUTOKEN_TPU_RAW, path).  Returns run name -> the cold
+    run's launch counts."""
+    import hutoken_tpu_torch as hutoken
+    from hutoken_tpu_torch.native import NativeEngine
+
+    by_run = {}
+    for name, (vocab, special, merges), byte_mode, prefix, docs, raw_env, path in runs:
+        t0 = time.perf_counter()
+        os.environ["HUTOKEN_TPU_RAW"] = raw_env
+        kw = {"merges_file_path": merges} if merges else {}
+        hutoken.initialize(vocab, special, is_byte_encoder=byte_mode, prefix=prefix, device=device, **kw)
+        _got, by_run[name], _max_id = encode_run(NativeEngine(hutoken._ctx), docs, name, path, label)
+        print(f"(12) {name}: sub-phase {time.perf_counter() - t0:.1f} s", flush=True)
+    os.environ.pop("HUTOKEN_TPU_RAW", None)
+    return by_run
+
+
+def id_vs_plain(device: str, zipf: list[str], unique: list[str], label: str, char_ctx,
+                tables: dict) -> dict:
+    """(d) The id kernel against its twin (``merge_words_packed`` /
+    ``merge_words_from_bytes_packed``) on the card, exactly, on the
+    prefix the host reads, at the engine's shapes and output types:
+    char-mode ids of corpus words, compound bytes on the narrow and the
+    wide table, ids on hand-built wide rules ranked from 2^24 whose
+    first minimum in each row lies at a position of 32 or more, and pad
+    rows.  Each timed with the sleep-led timer beside the twin and the
+    bound (the bytes in and out, and the pair table's slots as the twin
+    probes them, with no minsuper bound: the kernel reads none).
+    ``char_ctx`` is the char-mode vocabulary's context; ``tables`` maps
+    "big-merges" and "wide-merges" to their DeviceTables on the card."""
+    import types
+
+    import torch
+
+    from hutoken_tpu_torch import corpora as C
+    from hutoken_tpu_torch.engine import TorchTokenizer
+    from hutoken_tpu_torch.ops import id_merge as IM
+    from hutoken_tpu_torch.ops import merge as TM
+    from hutoken_tpu_torch.scripts.profile_merge import block_of, char_block_words, compound_words
+    from hutoken_tpu_torch.tables import build_pair_table, device_tables
+
+    (w32, l32), (w128, l128) = ID_BLOCKS
+    char_engine = TorchTokenizer(char_ctx, device=device)
+    char_tab = char_engine.dev_tables
+    words, seeds = char_block_words(char_engine, zipf[:4000] + unique, w32)
+    check(len(words) == w32, f"(12d) {len(words)} distinct corpus words of 2-32 char-mode ids")
+    char_ids = np.full((w32, l32), -1, dtype=np.int32)
+    for i, sd in enumerate(seeds):
+        char_ids[i, : len(sd)] = sd
+    rm = C.high_rank_rules()
+    rules, _marker = rm
+    enc = types.SimpleNamespace(pair_table=build_pair_table(rules), pairs=rules, byte_seed_ids=None)
+    high_tab = device_tables(enc, None, device)
+    check(high_tab.wide and min(r for r, _m in rules.values()) >= C.HIGH_RANK, "(12d) hand-built wide rules")
+    _w, raw, lens = block_of(compound_words(zipf, w128), l128)
+    cases = {
+        f"char {w32}x{l32}": (char_tab, char_ids, None, False),
+        f"big-merges {w128}x{l128}": (tables["big-merges"], raw, lens, True),
+        f"wide-merges {w128}x{l128}": (tables["wide-merges"], raw, lens, False),
+        f"high-rank {w128}x{l128}": (high_tab, C.high_rank_block(rm, w128, l128), None, False),
+        f"pad rows {w128}x{l128}": (char_tab, np.full((w128, l128), -1, dtype=np.int32), None, False),
+    }
+    result = {"max_abs_err": 0, "by": {}}
+    for key, (tab, x, n, u16) in cases.items():
+        xd = torch.from_numpy(x).to(device)
+        if n is None:
+            kernel = functools.partial(IM.id_merge, tab, xd, u16)
+            twin = functools.partial(TM.merge_words_packed, tab, xd, u16)
+            in_bytes = x.nbytes
+        else:
+            nd = torch.from_numpy(n).to(device)
+            kernel = functools.partial(IM.id_merge_bytes, tab, xd, nd, u16)
+            twin = functools.partial(TM.merge_words_from_bytes_packed, tab, xd, nd, u16)
+            in_bytes = x.nbytes + n.nbytes + 4 * 256  # + the byte seeds
+        W, L = x.shape
+        with probe_log() as pairs:
+            want = twin()
+        counts = want[:W].to(torch.int64) & 0xFFFF
+        read = W + int(counts.sum())
+        got = kernel()
+        err = int((got[:read].to(torch.int64) - want[:read].to(torch.int64)).abs().max())
+        result["max_abs_err"] = max(result["max_abs_err"], err)
+        check(err == 0, f"(12d) id kernel == twin on {key}")
+        seeded = (x >= 0).sum(axis=1) if n is None else n
+        merged = int((counts.cpu().numpy() < seeded).sum())
+        if key.startswith("pad"):
+            check(read == W and int(counts.max()) == 0, f"(12d) {key}: every count 0")
+        else:
+            check(merged > W // 2, f"(12d) {key}: only {merged} of {W} rows merged")
+        scan_bytes = 8 * (1 + -(-W // IM.words_per_block(L)))
+        nbytes = (in_bytes + probed_slot_bytes(tab, pairs, with_minsuper=False)
+                  + read * want.element_size() + scan_bytes)
+        # in turns, inside this call; the pair table is meant to stay in L2
+        k1 = kernel_ms(kernel)
+        p1 = time_ms(twin, 2)
+        k2 = kernel_ms(kernel)
+        row = {"ms": (k1 + k2) / 2, "plain_ms": p1, **bound_entry(nbytes)}
+        result["by"][key] = row
+        print(f"[{label}] (12d) id kernel {key} ({'wide' if tab.wide else 'narrow'}, "
+              f"{'16' if u16 else '32'}-bit out): packed prefix of {read} entries equal to the twin "
+              f"(max_abs_err 0, tolerance 0), {merged} rows merged; kernel {k1:.4f} / {k2:.4f} ms; "
+              f"twin {p1:.3f} ms; bound {row['bound_ms']:.5f} ms ({nbytes} B), share "
+              f"{row['bound_ms'] / row['ms']:.3f}", flush=True)
+    return result
+
+
+def char_and_long_words(device: str, zipf: list[str], unique: list[str], label: str,
+                        wide: dict, directory: str):
+    """Phase 12: char mode and words of 33-128 bytes through the id merge
+    kernel.  Returns (its launches over the runs of (b) and (c), by run,
+    (d)'s result)."""
+    from hutoken_tpu_torch.context import TokenizerContext
+    from hutoken_tpu_torch.tables import device_tables, max_token_id
+
+    t0 = time.perf_counter()
+    vocab, special = write_char_fixture(os.path.join(directory, "char"))
+    char_ctx = TokenizerContext.load(vocab, special, is_byte_encoder=False)
+    char = (vocab, special, None)
+    check(len(char_ctx.vocab.id2str) == 32000 and max_token_id(char_ctx.vocab) < 0xFFFF,
+          "(12a) the char-mode vocabulary: 32,000 ids below 0xFFFF")
+    print(f"(12a) char-mode vocabulary written and loaded in {time.perf_counter() - t0:.1f} s", flush=True)
+    long_docs = long_word_docs(zipf)
+    runs = [
+        ("char       zipf   no prefix", char, False, None, zipf, "auto", "char"),
+        ("char       unique no prefix", char, False, None, unique, "auto", "char"),
+        (f"char       zipf {CHAR_PREFIX_MB:g} MB prefix ▁", char, False, "▁",
+         docs_mb(zipf, CHAR_PREFIX_MB), "auto", "char"),
+        ("big-merges long words RAW=0", fixture_paths("big-merges"), True, None, long_docs, "0", "long"),
+        ("wide-merges long words RAW=0", wide["wide-merges"], True, None, long_docs, "0", "long-wide"),
+    ]
+    by_run = id_runs(device, runs, label)
+    launches = sum(c["id_merge"] + c["id_merge_wide"] for c in by_run.values())
+    per_run = {name: c["id_merge"] + c["id_merge_wide"] for name, c in by_run.items()}
+
+    t0 = time.perf_counter()
+    tables = {}
+    for name in ("big-merges", "wide-merges"):
+        ctx, enc = load_config(fixture_paths(name) if name == "big-merges" else wide[name])
+        tables[name] = device_tables(enc, ctx, device)
+    check(tables["wide-merges"].wide and not tables["big-merges"].wide, "(12d) the tables' layouts")
+    result = id_vs_plain(device, zipf, unique, label, char_ctx, tables)
+    print(f"(12d) kernel against twin: sub-phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, per_run, result
+
+
 def main() -> int:
     import torch
 
@@ -1808,14 +2043,15 @@ def main() -> int:
     # 2. build: one nvcc per kernel source, started together
     from hutoken_tpu_torch.ops import fused_merge as FM
     from hutoken_tpu_torch.ops import gather as G
+    from hutoken_tpu_torch.ops import id_merge as IM
     from hutoken_tpu_torch.ops import seg_merge as SM
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        built = list(pool.map(lambda m: m.build(), (FM, SM, G)))
+    with ThreadPoolExecutor(4) as pool:
+        built = list(pool.map(lambda m: m.build(), (FM, SM, G, IM)))
     for so in built:
         print(f"built {os.path.relpath(so, HERE)}")
-    print(f"all three kernel sources built in {time.perf_counter() - t0:.1f} s")
+    print(f"all four kernel sources built in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     zipf = build_corpus(ZIPF_MB)
@@ -1842,12 +2078,13 @@ def main() -> int:
     device_decode(device, zipf, unique, label)
     print(f"device decode took {time.perf_counter() - t0:.1f} s")
 
-    # 6w. the wide vocabulary; counts are zeroed inside, right before each run
+    # 6w. the wide vocabulary (its files kept for phase 12); counts are
+    # zeroed inside, right before each run
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="hutoken-wide-") as wide_dir:
-        wide = wide_paths(wide_dir)
-        kvw = fused_vs_plain(device, zipf, label, wide)
-        wide_launches, wide_per_run = wide_main_path(device, zipf, unique, label, wide)
+    generated = tempfile.TemporaryDirectory(prefix="hutoken-fixtures-")
+    wide = wide_paths(os.path.join(generated.name, "wide"))
+    kvw = fused_vs_plain(device, zipf, label, wide)
+    wide_launches, wide_per_run = wide_main_path(device, zipf, unique, label, wide)
     check(wide_launches > 0, "the wide main path launched the wide kernel")
     print(f"wide vocabulary phases took {time.perf_counter() - t0:.1f} s")
 
@@ -1879,6 +2116,13 @@ def main() -> int:
     hole_vocabularies(device, label)
     drivers(label)
     print(f"drivers took {time.perf_counter() - t0:.1f} s")
+
+    # 12. char mode and long words through the id merge kernel; counts are
+    # zeroed inside, right before each run
+    t0 = time.perf_counter()
+    id_launches, id_per_run, iv = char_and_long_words(device, zipf, unique, label, wide, generated.name)
+    generated.cleanup()
+    print(f"char mode and long words took {time.perf_counter() - t0:.1f} s")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "hutoken_tpu"))
     check(not loaded, f"neither jax nor the JAX package was loaded: {loaded[:5]}")
@@ -1896,6 +2140,8 @@ def main() -> int:
         merge_entry("seg_merge", "hutoken_tpu_torch/csrc/seg_merge.cu",
                     "hutoken_tpu/ops/pallas_merge.py:445", launches["seg_merge"],
                     per_run["seg_merge"], sv, "big-merges", "table"),
+        merge_entry("id_merge", "hutoken_tpu_torch/csrc/id_merge.cu", "hutoken_tpu/ops/merge.py:247",
+                    id_launches, id_per_run, iv, "char 16384x32", "block"),
         *gathers,
     ]}))
     print(json.dumps({"ok": True, "device": {

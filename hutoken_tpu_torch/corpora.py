@@ -1,7 +1,8 @@
 """Generated inputs of the port's smoke run (``chip_smoke.py``) and of
 its CPU parity tests: the fixture corpus text, the JAX bench's two
-benchmark corpora, and a byte-level vocabulary of 100,256 ids (token
-ids and pair ranks past 16 bits), written on demand.
+benchmark corpora, a byte-level vocabulary of 100,256 ids (token ids and
+pair ranks past 16 bits) and a SentencePiece-style char-mode vocabulary
+of 32,000 ids, written on demand.
 
 Copies of ``tests/fixture_tools.py``'s base text and corpus and of
 ``bench.py``'s corpus builders, which load the JAX package;
@@ -17,6 +18,14 @@ import string
 import numpy as np
 
 WIDE_VOCAB_SIZE = 100256  # cl100k_base's id count
+CHAR_VOCAB_SIZE = 32000  # Llama 2's SentencePiece id count
+SPACE_MARK = "\u2581"  # "▁", SentencePiece's space
+# the char-mode special-chars file: space and the whitespace controls
+CHAR_SPECIALS = {32: SPACE_MARK, 10: "<0x0A>", 13: "<0x0D>", 9: "<0x09>"}
+# the lowest rank of the hand-built wide rules: rank * 128 + position
+# passes 31 bits from here on
+HIGH_RANK = 1 << 24
+MAX_RULE_RANK = (1 << 26) - 1  # tables.MAX_WIDE_RANK
 
 BASE_TEXT = (
     "A gyors barna róka átugrik a lusta kutya fölött. "
@@ -182,3 +191,97 @@ def write_wide_fixture(directory: str) -> tuple[str, str, str]:
             if idx >= 256 and len(sp) >= 2 and sp[:-1] in known:
                 f.write(f"{sp[:-1]} {sp[-1]}\n")
     return vocab_path, special_path, merges_path
+
+
+def _char_tokens() -> list[str]:
+    """Char-mode tokens in id order: the 256 ``<0xNN>`` byte fallbacks,
+    "▁", the printable ASCII characters and every other character of
+    ``BASE_TEXT`` but whitespace, then breadth-first prefix chains of
+    characters over about 60,000 word forms (the base words plus 2-4
+    random lowercase letters), each with and without a leading "▁".
+    Every multi-character token splits into an in-vocab prefix and its
+    last character."""
+    rng = random.Random(13)
+    tokens = [f"<0x{b:02X}>" for b in range(256)] + [SPACE_MARK]
+    chars = sorted(set(BASE_TEXT) | {chr(c) for c in range(0x21, 0x7F)})
+    tokens += [c for c in chars if not c.isspace()]
+    known = set(tokens)
+    base_words = sorted(set(BASE_TEXT.split()))
+    forms = list(base_words)
+    while len(forms) < 60000:
+        tail = "".join(rng.choice(string.ascii_lowercase) for _ in range(rng.randint(2, 4)))
+        forms.append(rng.choice(base_words) + tail)
+    for ln in range(2, 64):
+        for w in forms:
+            for cand in ((SPACE_MARK + w)[:ln], w[:ln]):
+                if len(cand) == ln and cand not in known:
+                    known.add(cand)
+                    tokens.append(cand)
+                    if len(tokens) == CHAR_VOCAB_SIZE:
+                        return tokens
+    raise ValueError(f"the word forms give only {len(tokens)} tokens")
+
+
+def write_char_fixture(directory: str) -> tuple[str, str]:
+    """Write a SentencePiece-style char-mode vocabulary of
+    ``CHAR_VOCAB_SIZE`` ids (every id below 0xFFFF, so the pair table is
+    the narrow one) and its special-chars file (space to "▁", newline,
+    carriage return and tab to their ``<0xNN>`` fallbacks) into
+    ``directory``; returns the two paths.  It has no merges file: its
+    pair rules are every split of a token into two tokens, ranked by
+    id.  Load it with ``is_byte_encoder=False``.  Deterministic."""
+    from .formats import write_special_chars_file
+
+    os.makedirs(directory, exist_ok=True)
+    vocab_path = os.path.join(directory, "char-vocab.txt")
+    special_path = os.path.join(directory, "char-vocab_special_chars.txt")
+    with open(vocab_path, "w", encoding="utf-8") as f:
+        for idx, tok in enumerate(_char_tokens()):
+            hex_token = "".join(f"0x{b:02X}" for b in tok.encode("utf-8"))
+            f.write(f"{hex_token} == {idx}\n")
+    write_special_chars_file(special_path, CHAR_SPECIALS)
+    return vocab_path, special_path
+
+
+def high_rank_rules(seed: int = 0, n_base: int = 48):
+    """Hand-built merge rules for the wide pair table, with every rank in
+    ``HIGH_RANK .. MAX_RULE_RANK`` and merged ids from 0x10000: rules over
+    pairs of the base ids ``0 .. n_base - 1``, rules joining their
+    results to a base id on either side, and one marker rule, ids
+    ``(n_base, n_base + 1)``, with the lowest rank of all.  Returns
+    ``(pairs {(left, right): (rank, merged)}, marker)``.  Deterministic
+    (numpy, ``seed``)."""
+    rng = np.random.default_rng(seed)
+    firsts = [(a, b) for a in range(n_base) for b in range(n_base) if rng.random() < 0.3]
+    merged = 0x10000
+    pairs = {}
+    for a, b in firsts:
+        pairs[(a, b)] = merged
+        merged += 1
+    level1 = list(pairs.values())
+    while len(pairs) < 2 * len(firsts):
+        m, x = int(level1[rng.integers(len(level1))]), int(rng.integers(n_base))
+        key = (m, x) if rng.random() < 0.5 else (x, m)
+        if key not in pairs:
+            pairs[key] = merged
+            merged += 1
+    ranks = np.unique(rng.integers(HIGH_RANK + 1, MAX_RULE_RANK + 1, 4 * len(pairs)))
+    ranks = rng.permutation(ranks)[: len(pairs)]
+    rules = {k: (int(r), int(m)) for (k, m), r in zip(pairs.items(), ranks)}
+    marker = (n_base, n_base + 1)
+    rules[marker] = (HIGH_RANK, merged)
+    return rules, marker
+
+
+def high_rank_block(rules_marker, W: int, L: int, seed: int = 0) -> np.ndarray:
+    """int32 ``[W, L]`` rows of base ids of :func:`high_rank_rules`, full
+    length, each with the marker pair at a position of 32 or more, so
+    that every row's first minimum lies past the first 32 positions.
+    ``L`` is at least 34."""
+    rng = np.random.default_rng(seed)
+    _rules, (ma, mb) = rules_marker
+    block = rng.integers(0, ma, (W, L)).astype(np.int32)
+    at = rng.integers(32, L - 1, W)
+    block[np.arange(W), at] = ma
+    block[np.arange(W), at + 1] = mb
+    return block

@@ -16,11 +16,8 @@
 // merge_warp.cuh's merge_word.  Each tile leaves the loop on its own once
 // its word merges nothing.  A block of 8 warps then scans its words'
 // counts in one warp, and the row base of its first word comes from a
-// single-pass decoupled look-back over the blocks before it: every block
-// publishes its count total, then its inclusive prefix, in one 64-bit
-// status word per block.  Blocks take their logical index from an atomic
-// ticket (the wrapper zeroes ticket and statuses), so a block only waits
-// on blocks that already run, in whatever order the card starts them.
+// single-pass decoupled look-back over the blocks before it
+// (merge_warp.cuh).
 // Only the counts and the W + sum(counts) prefix are written: the host
 // reads nothing past it.
 //
@@ -50,44 +47,6 @@
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
-constexpr unsigned long long kAggregate = 1ull << 62;  // status: block total
-constexpr unsigned long long kPrefix = 2ull << 62;     // status: inclusive prefix
-constexpr unsigned long long kValue = (1ull << 62) - 1;
-
-// Exclusive row base of logical block `block`, whose own count total is
-// `total`: the decoupled look-back, run by one whole warp.  status[b] is
-// 0 until block b publishes.  Each lane watches one of the 32 blocks
-// before the window's end; the window's sum runs up to the closest block
-// with an inclusive prefix, or slides 32 blocks back when none has one.
-__device__ long long look_back(unsigned long long* status, int block,
-                               long long total, int lane) {
-  if (block == 0) {
-    if (lane == 0) atomicExch(status, kPrefix | static_cast<unsigned long long>(total));
-    return 0;
-  }
-  if (lane == 0) {
-    atomicExch(status + block, kAggregate | static_cast<unsigned long long>(total));
-  }
-  long long prefix = 0;
-  for (int j = block - 1 - lane;; j -= 32) {  // warp-uniform
-    unsigned long long s = kPrefix;  // before block 0: a prefix of 0
-    if (j >= 0) {
-      do {
-        s = *reinterpret_cast<volatile unsigned long long*>(status + j);
-      } while (s == 0);
-    }
-    const unsigned has_prefix = __ballot_sync(ht::kFullMask, (s & kPrefix) != 0);
-    const int stop = has_prefix ? __ffs(has_prefix) - 1 : 31;
-    long long v = lane <= stop ? static_cast<long long>(s & kValue) : 0;
-    for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(ht::kFullMask, v, d);
-    prefix += v;
-    if (has_prefix) break;
-  }
-  if (lane == 0) {
-    atomicExch(status + block, kPrefix | static_cast<unsigned long long>(prefix + total));
-  }
-  return prefix;
-}
 
 template <int G, class Table, typename OutT>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -122,17 +81,7 @@ fused_merge_kernel(Table table, const int32_t* __restrict__ byte_seed,
   __syncthreads();
 
   if (warp == 0) {
-    // exclusive scan of the block's counts (kWords <= 32), then the
-    // row base of its first word
-    const int c = wl < kWords ? s_excl[wl] : 0;
-    int incl = c;
-    for (int d = 1; d < 32; d <<= 1) {
-      const int v = __shfl_up_sync(ht::kFullMask, incl, d);
-      if (wl >= d) incl += v;
-    }
-    if (wl < kWords) s_excl[wl] = incl - c;
-    const int total = __shfl_sync(ht::kFullMask, incl, 31);
-    const long long base = look_back(scan + 1, s_block, total, wl);
+    const long long base = ht::scan_block_counts<kWords>(s_excl, scan + 1, s_block, wl);
     if (wl == 0) s_base = base;
   }
   __syncthreads();

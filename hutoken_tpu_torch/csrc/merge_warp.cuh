@@ -1,6 +1,7 @@
 // The greedy BPE merge of one word held by one tile of G lanes (G = 8,
-// 16 or 32 lanes of a warp), shared by the fused merge (fused_merge.cu)
-// and the segmented merge (seg_merge.cu).
+// 16 or 32 lanes of a warp), shared by the fused merge (fused_merge.cu),
+// the segmented merge (seg_merge.cu) and the id merge (id_merge.cu); and,
+// at its end, the look-back that places the packed output's rows.
 //
 // Lane i of the tile holds the id at alive position i of a word of at
 // most G ids.  Each round every lane with a right neighbour probes the
@@ -148,7 +149,8 @@ struct Tile {
 
 // Runs the fixed point of the word whose n ids sit in tile lanes
 // 0..n-1 (id = -1 elsewhere).  Returns the final count n'; lanes
-// 0..n'-1 then hold the surviving ids in order, the other lanes -1.
+// 0..n'-1 then hold the surviving ids in order, the other lanes -1.  A
+// -1 among the n ids (a PAD) pairs with nothing and survives in place.
 // With kCarry, each lane's `tag` travels with its id through every
 // compaction (the segmented merge carries the byte offset of each
 // token's first byte).  `stage` is the warp's 32 ints of shared memory
@@ -167,7 +169,7 @@ __device__ __forceinline__ int merge_word(const Table& t, const Tile<G>& tile,
     int rank = kInfRank;
     int merged = -1;
     int msup = 0;
-    if (lane + 1 < n) {
+    if (lane + 1 < n && id >= 0 && right >= 0) {  // a PAD side has no rule
       t.lookup(static_cast<unsigned>(id), static_cast<unsigned>(right), rank,
                merged, msup);
     }
@@ -212,6 +214,78 @@ __device__ __forceinline__ int merge_word(const Table& t, const Tile<G>& tile,
     __syncwarp(m);
   }
   return n;
+}
+
+// ---------------------------------------------------------------------
+// The packed output's row bases: each block of a merge kernel scans its
+// words' counts, and a single-pass decoupled look-back over the blocks
+// before it gives the row base of its first word.  Shared by the fused
+// merge (fused_merge.cu) and the id merge (id_merge.cu).
+//
+// Every block publishes its count total, then its inclusive prefix, in
+// one 64-bit status word per block.  Blocks take their logical index
+// from an atomic ticket (the wrapper zeroes ticket and statuses), so a
+// block only waits on blocks that already run, in whatever order the
+// card starts them.
+
+constexpr unsigned long long kAggregate = 1ull << 62;  // status: block total
+constexpr unsigned long long kPrefix = 2ull << 62;     // status: inclusive prefix
+constexpr unsigned long long kValue = (1ull << 62) - 1;
+
+// Exclusive row base of logical block `block`, whose own count total is
+// `total`: the decoupled look-back, run by one whole warp.  status[b] is
+// 0 until block b publishes.  Each lane watches one of the 32 blocks
+// before the window's end; the window's sum runs up to the closest block
+// with an inclusive prefix, or slides 32 blocks back when none has one.
+__device__ inline long long look_back(unsigned long long* status, int block,
+                                      long long total, int lane) {
+  if (block == 0) {
+    if (lane == 0) atomicExch(status, kPrefix | static_cast<unsigned long long>(total));
+    return 0;
+  }
+  if (lane == 0) {
+    atomicExch(status + block, kAggregate | static_cast<unsigned long long>(total));
+  }
+  long long prefix = 0;
+  for (int j = block - 1 - lane;; j -= 32) {  // warp-uniform
+    unsigned long long s = kPrefix;  // before block 0: a prefix of 0
+    if (j >= 0) {
+      do {
+        s = *reinterpret_cast<volatile unsigned long long*>(status + j);
+      } while (s == 0);
+    }
+    const unsigned has_prefix = __ballot_sync(kFullMask, (s & kPrefix) != 0);
+    const int stop = has_prefix ? __ffs(has_prefix) - 1 : 31;
+    long long v = lane <= stop ? static_cast<long long>(s & kValue) : 0;
+    for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kFullMask, v, d);
+    prefix += v;
+    if (has_prefix) break;
+  }
+  if (lane == 0) {
+    atomicExch(status + block, kPrefix | static_cast<unsigned long long>(prefix + total));
+  }
+  return prefix;
+}
+
+// Run by one whole warp (warp 0 of the block): turns the block's word
+// counts s_counts[0..kWords) (kWords <= 32) into exclusive offsets within
+// the block, and returns the exclusive row base of the block's first word
+// over every block before it (logical index `block`; `status` is the
+// scan buffer past its ticket).
+template <int kWords>
+__device__ inline long long scan_block_counts(int* s_counts,
+                                              unsigned long long* status,
+                                              int block, int lane) {
+  static_assert(kWords <= 32, "a block scans at most 32 word counts");
+  const int c = lane < kWords ? s_counts[lane] : 0;
+  int incl = c;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(kFullMask, incl, d);
+    if (lane >= d) incl += v;
+  }
+  if (lane < kWords) s_counts[lane] = incl - c;
+  const int total = __shfl_sync(kFullMask, incl, 31);
+  return look_back(status, block, total, lane);
 }
 
 }  // namespace ht

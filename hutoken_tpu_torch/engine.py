@@ -7,10 +7,10 @@ The pipeline is the same:
    documents and interns its words on a PRODUCER thread,
 2. the MAIN thread packs first-seen words into length-sorted blocks and
    launches the merge: the fused CUDA kernel for words of up to 32
-   bytes, the eager fixed point of ``ops/merge.py`` for 33-128 bytes and
+   bytes, the id merge kernel (``ops/id_merge.py``) for 33-128 bytes and
    for char-mode id blocks (each on the narrow packed pair table, or on
-   the wide one when ids or ranks pass 16 bits: the wide kernel variant
-   and the wide probe),
+   the wide one when ids or ranks pass 16 bits: each kernel's wide
+   variant),
 3. each launch starts a non-blocking copy of its packed prefix into
    pinned host memory and records a CUDA event; a DRAINER thread waits
    on the events while later groups split,
@@ -79,7 +79,7 @@ from .context import TokenizerContext
 from .native import WordInterner, assemble, load_native, pack_rows
 from .ops.decode import decode_tokens_blob, decode_tokens_blob_tot, write_chunk
 from .ops.fused_merge import MAX_WORD, merge_words_from_bytes_fused
-from .ops.merge import merge_words_from_bytes_packed, merge_words_packed
+from .ops.id_merge import id_merge, id_merge_bytes
 from .ops.split import RawChunkEncoder, find_cut, supported_alphabet
 from .parallel.mesh import DataMesh
 from .parallel.sharded import replicas, row_slices
@@ -87,8 +87,8 @@ from .pretokenize import encode_remap, split_words, split_words_pattern
 from .tables import build_encoder_tables, device_tables, max_token_id
 from .utils.mem import tune_allocator
 
-# words of up to 32 bytes take the fused kernel, 33-128 bytes the eager
-# fixed point, longer ones the exact host path
+# words of up to 32 bytes take the fused kernel, 33-128 bytes the id
+# merge kernel, longer ones the exact host path
 BUCKETS = (32, 128)
 MAX_DEVICE_LEN = BUCKETS[-1]
 # rows per launch: the JAX engine's block sizes for its fused kernel
@@ -713,9 +713,13 @@ class TorchTokenizer:
 
     def _merge_block(self, block: np.ndarray) -> list:
         """The launch of an id block: per shard ``(packed, rows, token
-        bound)``, its packed output on its device."""
+        bound)``, its packed output on its device.  The block is narrowed
+        to its longest row (the last column holding an id) before it is
+        copied: the id kernel takes any width up to 128."""
+        held = np.flatnonzero((block >= 0).any(axis=0))
+        block = np.ascontiguousarray(block[:, : held[-1] + 1 if held.size else 1])
         return [
-            (merge_words_packed(tab, self._to_device(block[sl], tab.device), False),
+            (id_merge(tab, self._to_device(block[sl], tab.device), False),
              sl.stop - sl.start, int((block[sl] >= 0).sum()))
             for _s, sl, tab in self._shard_split(block.shape[0])
         ]
@@ -739,7 +743,7 @@ class TorchTokenizer:
                 packed = merge_words_from_bytes_fused(tab, raw_d, lens_d, self._u16_out)
                 self.stat_shard_fused[s] += 1
             else:
-                packed = merge_words_from_bytes_packed(tab, raw_d, lens_d, self._u16_out)
+                packed = id_merge_bytes(tab, raw_d, lens_d, self._u16_out)
             out.append((packed, sl.stop - sl.start, int(lens[sl].sum())))
         return out
 

@@ -5,9 +5,10 @@ ported).
 
 Per round every word applies its single (rank, leftmost)-minimum pair,
 which is exactly the sequential greedy order of the reference
-(src/core.c:66-209); words advance in lockstep.  These functions serve
-words of 33-128 bytes and char-mode id blocks on any device, and they
-are the probe the fused kernel's plain twin reuses.
+(src/core.c:66-209); words advance in lockstep.  The fixed point and its
+packings are the plain twin of the id merge kernel
+(``ops/id_merge.py``), which serves words of 33-128 bytes and char-mode
+id blocks on the card; the probes are also the fused kernel's twin's.
 
 The narrow packed table stores ids and ranks in 16 bits; vocabularies
 that do not fit get the wide table (``tables.DeviceTables``), and
@@ -117,7 +118,10 @@ def merge_fixed_point(tab, ids: torch.Tensor) -> torch.Tensor:
     """Greedy merge of a padded int32 [W, L] block (PAD = -1); returns
     the merged ids with PAD filling the freed tail.  Port of
     ``_merge_fixed_point`` (merge.py:247) as an eager loop: one
-    ``.any()`` host sync per round."""
+    ``.any()`` host sync per round.  The plain twin of
+    ``ops/id_merge.py``'s kernel; each call adds one to
+    ``merge_fixed_point.calls``."""
+    merge_fixed_point.calls += 1
     W, L = ids.shape
     col = torch.arange(L, device=ids.device)
     rows = torch.arange(W, device=ids.device)
@@ -144,6 +148,9 @@ def merge_fixed_point(tab, ids: torch.Tensor) -> torch.Tensor:
         before = (col[None, :] == (p - 1)[:, None]) & active[:, None]
         ranks = torch.where(before, r2[0][:, None], torch.where(at, r2[1][:, None], ranks))
         merged = torch.where(before, m2[0][:, None], torch.where(at, m2[1][:, None], merged))
+
+
+merge_fixed_point.calls = 0
 
 
 def compact_output(out_ids: torch.Tensor, u16_out: bool) -> torch.Tensor:

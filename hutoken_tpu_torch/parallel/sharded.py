@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.merge import merge_fixed_point
+from ..ops.id_merge import id_merge
 from .mesh import DataMesh
 
 
@@ -36,11 +36,13 @@ def replicas(dev_tables, mesh: DataMesh) -> list:
 
 
 def sharded_merge_words(dev_tables, mesh: DataMesh, ids) -> list[torch.Tensor]:
-    """Run ``merge_fixed_point`` on a padded int32 ``[W, L]`` block (a
-    tensor or an array, PAD = -1) with its rows split over ``mesh``'s
-    shards and the tables (``tables.DeviceTables``) replicated per
-    device.  Returns the merged slices of this process's shards, each on
-    its shard's device, as every sharded array of the port is a list.
+    """Run the merge fixed point on a padded int32 ``[W, L]`` block (a
+    tensor or an array, PAD = -1, L <= 128) with its rows split over
+    ``mesh``'s shards and the tables (``tables.DeviceTables``) replicated
+    per device: the id merge kernel's padded layout on a card, its twin
+    ``merge_fixed_point`` on the CPU.  Returns the merged slices of this
+    process's shards, each on its shard's device, as every sharded array
+    of the port is a list.
     On a mesh that spans processes every process passes the whole block
     and merges its own shards' rows."""
     if not isinstance(mesh, DataMesh):
@@ -49,6 +51,6 @@ def sharded_merge_words(dev_tables, mesh: DataMesh, ids) -> list[torch.Tensor]:
     if ids.dim() != 2:
         raise ValueError(f"sharded_merge_words: expects a [W, L] block, not shape {tuple(ids.shape)}")
     return [
-        merge_fixed_point(tab, ids[rows].to(tab.device))
+        id_merge(tab, ids[rows].to(tab.device, torch.int32), False, padded=True)
         for rows, tab in zip(row_slices(ids.shape[0], mesh), replicas(dev_tables, mesh))
     ]

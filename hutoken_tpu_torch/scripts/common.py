@@ -74,12 +74,15 @@ def kernel_ms(fn) -> float:
 
 def launch_counts() -> dict:
     """The encode kernels' launch counters: narrow fused, wide fused,
-    segmented.  Each wrapper adds one where it launches on the card."""
+    segmented, narrow id merge, wide id merge.  Each wrapper adds one
+    where it launches on the card."""
     from ..ops.fused_merge import merge_words_from_bytes_fused as fused
+    from ..ops.id_merge import id_merge
     from ..ops.seg_merge import seg_merge
 
     return {"fused_merge": fused.launches, "fused_merge_wide": fused.wide_launches,
-            "seg_merge": seg_merge.launches}
+            "seg_merge": seg_merge.launches, "id_merge": id_merge.launches,
+            "id_merge_wide": id_merge.wide_launches}
 
 
 def fixture_paths(name: str):

@@ -1,9 +1,9 @@
 """Where the merge's time goes on the card (counterpart of
-``scripts/profile_merge.py``): the fused kernel on one block, and the
-eager fixed point that serves words of 33-128 bytes.
+``scripts/profile_merge.py``): the fused kernel on one block, and the id
+merge kernel against its eager twin on the blocks the engine sends it.
 
-    python -m hutoken_tpu_torch.scripts.profile_merge [--tables narrow,wide]
-    python -m hutoken_tpu_torch.scripts.profile_merge --device cpu --words 512 --eager-words 64 --tables narrow
+    python -m hutoken_tpu_torch.scripts.profile_merge [--tables narrow,wide,char]
+    python -m hutoken_tpu_torch.scripts.profile_merge --device cpu --words 512 --eager-words 64 --tables narrow,char --char-words 256
 
 For each table, ``narrow`` (the committed 23,096-id fixture with its
 merges.txt, the 16-bit packed table) and ``wide`` (the generated
@@ -16,20 +16,30 @@ the wide table):
    at widths 8, 16 and 32: the kernel equal to ``compact_output`` of its
    plain twin on the prefix the host reads, its time by CUDA events
    behind a sleep kernel (``profile_gather.cuda_time``);
-2. **eager fixed point**: ``--eager-blocks`` blocks of ``--eager-words``
-   (1,024) x 128 bytes through ``ops/merge.py::merge_words_from_bytes_packed``,
-   the engine's call for words of 33-128 bytes: ``seed_from_bytes``,
-   ``merge_fixed_point`` (one ``.any()`` host sync a round) and
-   ``compact_output`` (whose boolean indexing syncs again).  The words
-   are compounds glued from the alphabetic words of the Zipf corpus in
-   their order, with the leading space the split keeps, 33-128 bytes long:
-   neither benchmark corpus holds a word over 32 bytes.  Per block: ms
-   on the host clock (the loop waits on the device every round anyway),
-   the rounds (a word's merges, the most of any row, plus the round that
-   finds none), the device operations a round under ``torch.profiler``
-   (kernels, copies, fills), and the host syncs counted under
-   ``torch.cuda.set_sync_debug_mode("warn")``; a sample of rows is held
-   to the oracle.
+2. **long words**: ``--eager-blocks`` blocks of ``--eager-words``
+   (1,024) x 128 bytes, the engine's block of words of 33-128 bytes,
+   through the id merge kernel (``ops/id_merge.py::id_merge_bytes``) and
+   through its eager twin (``ops/merge.py::merge_words_from_bytes_packed``:
+   ``seed_from_bytes``, ``merge_fixed_point``, one ``.any()`` host sync a
+   round, and ``compact_output``, whose boolean indexing syncs again).
+   The words are compounds glued from the alphabetic words of the Zipf
+   corpus in their order, with the leading space the split keeps, 33-128
+   bytes long: neither benchmark corpus holds a word over 32 bytes.
+
+For ``char`` (the generated 32,000-id char-mode vocabulary,
+``corpora.write_char_fixture``): one block of ``--char-words`` (16,384)
+x 32 ids, the char-mode seeds of distinct words of the Zipf and the
+unique corpus, length-sorted, through ``ops/id_merge.py::id_merge`` and
+its eager twin ``merge_words_packed``.
+
+Per block, the kernel equal to the twin on the prefix the host reads and
+a sample of rows held to the oracle; the twin's ms on the host clock
+(the loop waits on the device every round anyway), its rounds (a word's
+merges, the most of any row, plus the round that finds none), its
+device operations a round under ``torch.profiler`` (kernels, copies,
+fills) and its host syncs under ``torch.cuda.set_sync_debug_mode("warn")``;
+the kernel's ms by CUDA events behind a sleep kernel, its launches and
+its host syncs.
 
 On the CPU (``--device cpu``) the twins run and every time, launch and
 sync count is "not measured".
@@ -150,54 +160,129 @@ def count_syncs(fn) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
+def twin_and_kernel(ctx, words, twin, kernel, W: int, seeds: int, device: str,
+                    label: str, what: str, shape: str) -> None:
+    """Hold ``kernel()`` to ``twin()`` (both packed) on the prefix the host
+    reads and a sample of rows to the oracle, then time both and print
+    one line each: ``eager fixed point ...`` and ``id kernel ...``.
+    ``seeds`` is the block's seed count (its ids before merging)."""
+    from ..ops.id_merge import id_merge
+    from ..ops.merge import merge_fixed_point
+
+    want = twin()
+    counts, rows = unpack(want, W)
+    n = W + int(counts.sum())
+    launches = id_merge.launches + id_merge.wide_launches
+    got = kernel()
+    launched = id_merge.launches + id_merge.wide_launches - launches
+    if not torch.equal(got[:n].cpu(), want[:n].cpu()):
+        raise RuntimeError(f"{what}: the id kernel differs from its eager twin")
+    check_rows(ctx, words, unpack(got, W)[1], what)
+    row_seeds = np.asarray(seeds)
+    rounds = int((row_seeds - counts).max()) + 1
+    if device == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        from .common import top_device_ops
+
+        twin()
+        sync(device)
+        t0 = time.perf_counter()
+        twin()
+        sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            twin()
+            sync(device)
+        busy, top = top_device_ops(prof, n=1000)
+        ops = sum(c for _n, _s, c in top)
+        syncs = count_syncs(twin)
+        twin_timing = (f"{ms:.3f} ms a block (device {busy * 1e3:.3f} ms), {ops / rounds:.1f} device ops "
+                       f"a round ({ops} in all), {syncs} host syncs")
+        calls = merge_fixed_point.calls
+        kernel_timing = (f"kernel {kernel_ms(kernel):.4f} ms a block, {launched} launch, "
+                         f"{count_syncs(kernel)} host syncs, eager calls {merge_fixed_point.calls - calls}")
+    else:
+        twin_timing = "time, device ops and host syncs not measured"
+        kernel_timing = "time, launches and host syncs not measured"
+    sample = min(SAMPLE, W)
+    print(f"[{label}] eager fixed point {what}: {shape}, {rounds} rounds; equal to the oracle on "
+          f"{sample} rows; {twin_timing}", flush=True)
+    print(f"[{label}] id kernel {what}: {shape}, equal to the eager twin and the oracle on {sample} rows; "
+          f"{kernel_timing}", flush=True)
+
+
 def eager_rows(ctx, tab, u16: bool, docs, n_words: int, n_blocks: int, device: str,
                label: str, name: str) -> None:
+    from ..ops.id_merge import id_merge_bytes
     from ..ops.merge import merge_words_from_bytes_packed, seed_from_bytes
 
     pool = compound_words(docs, n_words * n_blocks)
     for b in range(n_blocks):
         words, raw, lens = block_of(pool[b * n_words: (b + 1) * n_words], 128)
         raw_d, lens_d = torch.from_numpy(raw).to(device), torch.from_numpy(lens).to(device)
-
-        def call():
-            return merge_words_from_bytes_packed(tab, raw_d, lens_d, u16)
-
-        counts, rows = unpack(call(), len(words))
-        check_rows(ctx, words, rows, f"{name} eager block {b}")
         seeds = (seed_from_bytes(tab.byte_seed, raw_d, lens_d) >= 0).sum(dim=1).cpu().numpy()
-        rounds = int((seeds - counts).max()) + 1
-        if device == "cuda":
-            from torch.profiler import ProfilerActivity, profile
+        twin_and_kernel(
+            ctx, words, lambda: merge_words_from_bytes_packed(tab, raw_d, lens_d, u16),
+            lambda: id_merge_bytes(tab, raw_d, lens_d, u16), len(words), seeds, device, label,
+            f"{name} block {b}",
+            f"{len(words)} x 128, words of {int(lens.min())}-{int(lens.max())} B ({int(lens.sum())} B)")
 
-            from .common import top_device_ops
 
-            call()
-            sync(device)
-            t0 = time.perf_counter()
-            call()
-            sync(device)
-            ms = (time.perf_counter() - t0) * 1e3
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                call()
-                sync(device)
-            busy, top = top_device_ops(prof, n=1000)
-            ops = sum(c for _n, _s, c in top)
-            syncs = count_syncs(call)
-            timing = (f"{ms:.3f} ms a block (device {busy * 1e3:.3f} ms), {ops / rounds:.1f} device ops "
-                      f"a round ({ops} in all), {syncs} host syncs")
-        else:
-            timing = "time, device ops and host syncs not measured"
-        print(f"[{label}] eager fixed point {name} block {b}: {len(words)} x 128, words of "
-              f"{int(lens.min())}-{int(lens.max())} B ({int(lens.sum())} B), {rounds} rounds; "
-              f"equal to the oracle on {min(SAMPLE, len(words))} rows; {timing}", flush=True)
+def char_rows(docs, n_words: int, device: str, label: str, directory: str) -> None:
+    """One block of ``n_words`` x 32 char-mode ids (the seeds of distinct
+    corpus words of 2-32 ids, length-sorted) through the id kernel and
+    its eager twin."""
+    from ..context import TokenizerContext
+    from ..corpora import build_unique_corpus, write_char_fixture
+    from ..engine import TorchTokenizer
+    from ..ops.id_merge import id_merge
+    from ..ops.merge import merge_words_packed
+
+    v, s = write_char_fixture(directory)
+    ctx = TokenizerContext.load(v, s, is_byte_encoder=False)
+    eng = TorchTokenizer(ctx, device=device)
+    tab = eng.dev_tables
+    print(f"[{label}] char table: {len(ctx.vocab.id2str)} ids, wide={tab.wide}", flush=True)
+    words, seeds = char_block_words(eng, docs + build_unique_corpus(0.5), n_words)
+    block = np.full((len(words), 32), -1, dtype=np.int32)
+    for i, sd in enumerate(seeds):
+        block[i, : len(sd)] = sd
+    ids = torch.from_numpy(block).to(device)
+    twin_and_kernel(
+        ctx, words, lambda: merge_words_packed(tab, ids, False), lambda: id_merge(tab, ids, False),
+        len(words), [len(sd) for sd in seeds], device, label, "char block 0",
+        f"{len(words)} x 32 ids, words of {len(seeds[0])}-{len(seeds[-1])} ids")
+
+
+def char_block_words(eng, docs, n: int):
+    """Up to ``n`` distinct words of ``docs`` (with the leading space the
+    split keeps) whose char-mode seeds number 2-32, and their seeds, in
+    corpus order, then sorted by seed count as the engine packs them."""
+    found: dict[bytes, np.ndarray] = {}
+    for d in docs:
+        for w in d.split(" "):
+            b = (" " + w).encode()
+            if b in found:
+                continue
+            sd = eng._seed_word(b, False)
+            if sd is not None and 2 <= len(sd) <= 32:
+                found[b] = sd
+                if len(found) == n:
+                    break
+        if len(found) == n:
+            break
+    pairs = sorted(found.items(), key=lambda kv: len(kv[1]))
+    return [w for w, _s in pairs], [s for _w, s in pairs]
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--tables", default="narrow,wide", help="narrow, wide or both")
+    ap.add_argument("--tables", default="narrow,wide,char", help="narrow, wide, char, or a list")
     ap.add_argument("--words", type=int, default=16384, help="words of the fused block")
     ap.add_argument("--eager-words", type=int, default=1024, help="words of an eager block")
     ap.add_argument("--eager-blocks", type=int, default=2)
+    ap.add_argument("--char-words", type=int, default=16384, help="words of the char-mode block")
     ap.add_argument("--mb", type=float, default=4.0, help="Zipf corpus MB the words come from")
     add_device_arg(ap)
     args = ap.parse_args(argv)
@@ -210,13 +295,16 @@ def main(argv=None) -> int:
     docs = build_corpus(args.mb)
     with tempfile.TemporaryDirectory(prefix="hutoken-wide-") as tmp:
         for name in args.tables.split(","):
+            if name == "char":
+                char_rows(docs, args.char_words, args.device, label, os.path.join(tmp, "char"))
+                continue
             if name == "narrow":
                 ctx = load_ctx("big-merges")
             elif name == "wide":
                 v, s, m = write_wide_fixture(os.path.join(tmp, "wide"))
                 ctx = TokenizerContext.load(v, s, is_byte_encoder=True, merges_file_path=m)
             else:
-                raise ValueError(f"unknown table {name!r}: narrow or wide")
+                raise ValueError(f"unknown table {name!r}: narrow, wide or char")
             eng = TorchTokenizer(ctx, device=args.device)
             tab, u16 = eng.dev_tables, eng._u16_out
             print(f"[{label}] {name} table: {len(ctx.vocab.id2str)} ids, wide={tab.wide}, "

@@ -126,13 +126,16 @@ def test_profile_merge_and_profile_raw_and_profiler(tmp_path):
     trace = os.path.join(tmp_path, "trace")
     out = _run(f"""
         from hutoken_tpu_torch.scripts import profile_merge, profile_raw, profiler
-        profile_merge.main(["--device", "cpu", "--tables", "narrow", "--words", "256",
-                            "--eager-words", "32", "--eager-blocks", "1", "--mb", "0.5"])
+        profile_merge.main(["--device", "cpu", "--tables", "narrow,char", "--words", "256",
+                            "--eager-words", "32", "--eager-blocks", "1", "--mb", "0.5",
+                            "--char-words", "64"])
         profile_raw.main(["--device", "cpu", "--mb", "0.2", "--runs", "1"])
         profiler.main(["--device", "cpu", "--mb", "0.05", "--iters", "1", "--trace", {trace!r}])
     """)
     assert out.count("equal to the twin and the oracle") == 3
     assert "eager fixed point narrow block 0: 32 x 128" in out
+    assert "id kernel narrow block 0: 32 x 128" in out and "id kernel char block 0: 64 x 32 ids" in out
+    assert out.count("equal to the eager twin and the oracle") == 2
     assert "[raw] run 0 host stages" in out and "[pipeline] run 0" in out
     assert os.path.isfile(os.path.join(trace, "trace.json"))
     assert "device time: not measured" in out
