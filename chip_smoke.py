@@ -155,7 +155,15 @@ own:
    words, 1,024 x 128 compound bytes on both tables, 1,024 x 128 ids on
    hand-built wide rules ranked from 2^24 with each row's first minimum
    at a position of 32 or more (``corpora.high_rank_rules``), and
-   1,024 x 128 pad rows; each timed beside its twin and its bound.
+   1,024 x 128 pad rows, each one launch with no host sync, timed back
+   to back and under a cold L2 beside its twin, the twin's rounds (ms a
+   round) and its bound; then the edge blocks of
+   ``profile_merge.edge_block`` (the first merge at p = 0 and at the
+   last pair, PAD inside and at both ends, one id or one pair repeated
+   over the row, rows that merge to one id) on the char, big-merges,
+   wide-merges and high-rank rules at widths 31, 32, 33, 63, 64, 65,
+   127 and 128, each exact, one launch, no host sync, timed warm and
+   cold beside its rounds.
 
 The last two lines are the kernel summary and ``{"ok": true, ...}``.
 """
@@ -1843,6 +1851,10 @@ def merge_entry(name, source, replaces, launches, per_run, res, key, by) -> dict
         f"bound_ms_by_{by}": {k: r["bound_ms"] for k, r in res["by"].items()},
         **({"compact_output_ms_by_block": {k: r["compact_output_ms"] for k, r in res["by"].items()}}
            if "compact_output_ms" in row else {}),
+        **({"rounds_by_block": {k: r["rounds"] for k, r in res["by"].items()},
+            "cold_ms_by_block": {k: r["cold_ms"] for k, r in res["by"].items()},
+            "edges_by_block": res["edges"]}
+           if "rounds" in row else {}),
     }
 
 
@@ -1900,11 +1912,16 @@ def id_vs_plain(device: str, zipf: list[str], unique: list[str], label: str, cha
     char-mode ids of corpus words, compound bytes on the narrow and the
     wide table, ids on hand-built wide rules ranked from 2^24 whose
     first minimum in each row lies at a position of 32 or more, and pad
-    rows.  Each timed with the sleep-led timer beside the twin and the
-    bound (the bytes in and out, and the pair table's slots as the twin
-    probes them, with no minsuper bound: the kernel reads none).
-    ``char_ctx`` is the char-mode vocabulary's context; ``tables`` maps
-    "big-merges" and "wide-merges" to their DeviceTables on the card."""
+    rows; then the edge blocks (``profile_merge.edge_block``) of each of
+    those four rule sets at widths 31-128.  Each block is one launch with
+    no host sync (under ``set_sync_debug_mode("error")``), timed with the
+    sleep-led timer back to back and under a cold L2 beside the twin's
+    rounds (the most merges of any row, plus the round that finds none);
+    the five engine-shaped blocks also beside the twin and the bound (the
+    bytes in and out, and the pair table's slots as the twin probes them,
+    with no minsuper bound: the kernel reads none).  ``char_ctx`` is the
+    char-mode vocabulary's context; ``tables`` maps "big-merges" and
+    "wide-merges" to their (DeviceTables on the card, rules)."""
     import types
 
     import torch
@@ -1913,8 +1930,15 @@ def id_vs_plain(device: str, zipf: list[str], unique: list[str], label: str, cha
     from hutoken_tpu_torch.engine import TorchTokenizer
     from hutoken_tpu_torch.ops import id_merge as IM
     from hutoken_tpu_torch.ops import merge as TM
-    from hutoken_tpu_torch.scripts.profile_merge import block_of, char_block_words, compound_words
-    from hutoken_tpu_torch.tables import build_pair_table, device_tables
+    from hutoken_tpu_torch.profile_gather import cuda_time
+    from hutoken_tpu_torch.scripts.profile_merge import (
+        EDGE_WIDTHS,
+        block_of,
+        char_block_words,
+        compound_words,
+        edge_block,
+    )
+    from hutoken_tpu_torch.tables import build_encoder_tables, build_pair_table, device_tables
 
     (w32, l32), (w128, l128) = ID_BLOCKS
     char_engine = TorchTokenizer(char_ctx, device=device)
@@ -1930,14 +1954,21 @@ def id_vs_plain(device: str, zipf: list[str], unique: list[str], label: str, cha
     high_tab = device_tables(enc, None, device)
     check(high_tab.wide and min(r for r, _m in rules.values()) >= C.HIGH_RANK, "(12d) hand-built wide rules")
     _w, raw, lens = block_of(compound_words(zipf, w128), l128)
+    (big, big_rules), (wide, wide_rules) = tables["big-merges"], tables["wide-merges"]
     cases = {
         f"char {w32}x{l32}": (char_tab, char_ids, None, False),
-        f"big-merges {w128}x{l128}": (tables["big-merges"], raw, lens, True),
-        f"wide-merges {w128}x{l128}": (tables["wide-merges"], raw, lens, False),
+        f"big-merges {w128}x{l128}": (big, raw, lens, True),
+        f"wide-merges {w128}x{l128}": (wide, raw, lens, False),
         f"high-rank {w128}x{l128}": (high_tab, C.high_rank_block(rm, w128, l128), None, False),
         f"pad rows {w128}x{l128}": (char_tab, np.full((w128, l128), -1, dtype=np.int32), None, False),
     }
-    result = {"max_abs_err": 0, "by": {}}
+    char_rules = build_encoder_tables(char_ctx).pairs
+    edge_sets = {"char": (char_tab, char_rules), "big-merges": (big, big_rules),
+                 "wide-merges": (wide, wide_rules), "high-rank": (high_tab, rules)}
+    for name, (tab, rs) in edge_sets.items():
+        for width in EDGE_WIDTHS:
+            cases[f"edges {name} {width}"] = (tab, edge_block(rs, width, seed=width), None, not tab.wide)
+    result = {"max_abs_err": 0, "by": {}, "edges": {}}
     for key, (tab, x, n, u16) in cases.items():
         xd = torch.from_numpy(x).to(device)
         if n is None:
@@ -1954,12 +1985,30 @@ def id_vs_plain(device: str, zipf: list[str], unique: list[str], label: str, cha
             want = twin()
         counts = want[:W].to(torch.int64) & 0xFFFF
         read = W + int(counts.sum())
-        got = kernel()
+        launches = IM.id_merge.launches + IM.id_merge.wide_launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = kernel()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(IM.id_merge.launches + IM.id_merge.wide_launches == launches + 1,
+              f"(12d) one launch on {key}")
         err = int((got[:read].to(torch.int64) - want[:read].to(torch.int64)).abs().max())
         result["max_abs_err"] = max(result["max_abs_err"], err)
         check(err == 0, f"(12d) id kernel == twin on {key}")
         seeded = (x >= 0).sum(axis=1) if n is None else n
         merged = int((counts.cpu().numpy() < seeded).sum())
+        rounds = int((seeded - counts.cpu().numpy()).max()) + 1
+        if key.startswith("edges"):
+            check(merged > 0, f"(12d) {key}: no row merged")
+            warm, cold = kernel_ms(kernel), cuda_time(kernel, cold=True)
+            result["edges"][key] = {"rounds": rounds, "ms": warm, "cold_ms": cold}
+            print(f"[{label}] (12d) id kernel {key} ({'wide' if tab.wide else 'narrow'}): packed "
+                  f"prefix of {read} entries equal to the twin (max_abs_err 0, tolerance 0), one "
+                  f"launch, no host sync, {merged} of {W} rows merged, {rounds} rounds; kernel "
+                  f"{warm:.4f} ms ({warm / rounds * 1e3:.3f} us a round), cold L2 {cold:.4f} ms "
+                  f"({cold / rounds * 1e3:.3f} us a round)", flush=True)
+            continue
         if key.startswith("pad"):
             check(read == W and int(counts.max()) == 0, f"(12d) {key}: every count 0")
         else:
@@ -1967,16 +2016,20 @@ def id_vs_plain(device: str, zipf: list[str], unique: list[str], label: str, cha
         scan_bytes = 8 * (1 + -(-W // IM.words_per_block(L)))
         nbytes = (in_bytes + probed_slot_bytes(tab, pairs, with_minsuper=False)
                   + read * want.element_size() + scan_bytes)
-        # in turns, inside this call; the pair table is meant to stay in L2
+        # in turns, inside this call; warm, the pair table stays in L2
         k1 = kernel_ms(kernel)
         p1 = time_ms(twin, 2)
         k2 = kernel_ms(kernel)
-        row = {"ms": (k1 + k2) / 2, "plain_ms": p1, **bound_entry(nbytes)}
+        cold = cuda_time(kernel, cold=True)
+        row = {"ms": (k1 + k2) / 2, "plain_ms": p1, "cold_ms": cold, "rounds": rounds,
+               **bound_entry(nbytes)}
         result["by"][key] = row
         print(f"[{label}] (12d) id kernel {key} ({'wide' if tab.wide else 'narrow'}, "
               f"{'16' if u16 else '32'}-bit out): packed prefix of {read} entries equal to the twin "
-              f"(max_abs_err 0, tolerance 0), {merged} rows merged; kernel {k1:.4f} / {k2:.4f} ms; "
-              f"twin {p1:.3f} ms; bound {row['bound_ms']:.5f} ms ({nbytes} B), share "
+              f"(max_abs_err 0, tolerance 0), one launch, no host sync, {merged} rows merged, "
+              f"{rounds} rounds; kernel {k1:.4f} / {k2:.4f} ms ({row['ms'] / rounds * 1e3:.3f} us a "
+              f"round), cold L2 {cold:.4f} ms ({cold / rounds * 1e3:.3f} us a round); twin "
+              f"{p1:.3f} ms; bound {row['bound_ms']:.5f} ms ({nbytes} B), share "
               f"{row['bound_ms'] / row['ms']:.3f}", flush=True)
     return result
 
@@ -2013,8 +2066,8 @@ def char_and_long_words(device: str, zipf: list[str], unique: list[str], label: 
     tables = {}
     for name in ("big-merges", "wide-merges"):
         ctx, enc = load_config(fixture_paths(name) if name == "big-merges" else wide[name])
-        tables[name] = device_tables(enc, ctx, device)
-    check(tables["wide-merges"].wide and not tables["big-merges"].wide, "(12d) the tables' layouts")
+        tables[name] = (device_tables(enc, ctx, device), enc.pairs)
+    check(tables["wide-merges"][0].wide and not tables["big-merges"][0].wide, "(12d) the tables' layouts")
     result = id_vs_plain(device, zipf, unique, label, char_ctx, tables)
     print(f"(12d) kernel against twin: sub-phase {time.perf_counter() - t0:.1f} s", flush=True)
     return launches, per_run, result

@@ -15,27 +15,68 @@
 // anywhere in a row pairs with nothing and keeps its place; the packed
 // output drops it, the padded one keeps it.
 //
-// Design.  Rows of up to 32 ids take merge_warp.cuh's merge_word on a
-// tile of 8, 16 or 32 lanes, as the fused merge does; only the loader
-// differs.  A row of 33-128 ids takes a whole warp, K = 2 or 4 ids a
-// lane, lane l holding positions K*l .. K*l+K-1, and keeps each pair's
-// (rank, merged) in registers as _merge_fixed_point keeps its ranks
-// array: a round takes the warp's minimum rank (__reduce_min_sync on the
-// rank alone, so that a wide rank of 2^24 or more cannot overflow a
-// rank * position key), the leftmost lane attaining it by ballot and that
-// lane's leftmost slot, shifts every later position left by one in
-// registers (one shuffle a value), and probes only the two pairs the
-// merge touched.  Each row then counts its surviving ids, and a block of
-// 8 warps scans its rows' counts and finds its row base by the
-// decoupled look-back of merge_warp.cuh; the padded layout writes every
-// position in place and skips the scan.
-//
 // What bounds it.  Not bytes: a 1,024 x 128 byte block is 132 KB in and
-// at most 0.5 MB out.  The bound is the latency of each round's dependent
-// steps (a probe of the pair table in L2, a handful of warp shuffles)
-// times the rounds of the longest word of a block.  The long-word loop
-// probes two pairs a round instead of every pair, so a round costs about
-// one L2 probe chain.
+// at most 0.5 MB out.  One merge a word a round makes each round depend
+// on the one before, so a block costs the rounds of its longest word (71-81
+// on 1,024 x 128 compound blocks, 11 on a 16,384 x 32 char block) times
+// what a round costs.  On the long blocks (under 8 warps an SM) that is a
+// round's latency, most of it the probe of the pair table, which stays in
+// the 50 MB L2 (4-8 MB of slots); on 16,384-row blocks the warps fill the
+// SMs and a round's instructions count as much.
+//
+// Design.  Every word keeps each pair's (rank, merged) in registers across
+// rounds, as _merge_fixed_point keeps its ranks array, so a round probes
+// only the two pairs its merge touched.  A row of up to 32 ids takes a
+// tile of 8 lanes, K = 1, 2 or 4 ids a lane (four rows a warp); a row of
+// 33-128 ids a whole warp, K = 2 or 4 (merge_tile, one loop for both).  A
+// round:
+//   1. the shift's operands (each lane's right neighbour's id, rank and
+//      merged) are shuffled before the minimum: they do not depend on
+//      the winning position p;
+//   2. the tile's minimum of rank * positions + position, by redux.sync
+//      on a warp and by a butterfly of shuffles on an 8-lane tile, so p
+//      comes out of the reduction; wide ranks reach 2^26 - 1, so over 64
+//      or 128 positions the warp reduces a wide rank alone and finds the
+//      leftmost lane attaining it by ballot;
+//   3. p's merged id m and the ids at p - 1 and p + 2, which the two new
+//      pairs take, shuffled from the winning lane, which picked them
+//      ahead by unrolled selects (never a run-time register index);
+//   4. every lane of the tile issues the probe of both new pairs,
+//      (id[p-1], m) and (m, id[p+2]): on the narrow table both chains
+//      advance together from one broadcast load each; on the wide table,
+//      whose chains run longer, lanes load every slot of both chains at
+//      once and a ballot finds their ends;
+//   5. while those loads are in flight, position p takes m and every
+//      later position its right neighbour's id and pair, in registers
+//      (no staging in shared memory); then the lanes holding p - 1 and p
+//      keep the probe's results.
+// A pair with a PAD side, or past the row's end, is never probed (a (PAD,
+// PAD) narrow key is -1, the empty slot's key).  Every collective is
+// warp-wide, shuffles segmented by the tile's width: under a mask of
+// fewer than 32 lanes the compiler sends each shuffle and redux.sync down
+// its divergent path (WARPSYNC.COLLECTIVE) whenever the warp's tiles run
+// together, as they do.  So the loop runs until the warp's last word is
+// done, a done tile merging nothing.  Each row then counts its surviving
+// ids, and a block of 8 warps scans its rows' counts and finds its row
+// base by the decoupled look-back of merge_warp.cuh; the padded layout
+// writes every position in place and skips the scan.
+//
+// Measured on the H100 and not kept: a 32-lane tile for every row of up
+// to 32 ids (four times the warps); the lane-parallel probe on the narrow
+// table (a ballot and four shuffles a round for chains that end at their
+// first slot); loading 2 or 4 slots of each chain a step; picking the
+// next merge among the other pairs while the probe is in flight, whose
+// extra shuffles and selects cost more than the latency they hid; and
+// shuffling the next round's neighbour ids under the probe (level).
+//
+// Why one merge a word a round stays.  Applying also every pair that the
+// fused kernel's minsuper bound certifies (ops/fused_merge.py) would not
+// cut the rounds of these blocks: on 1,024 compounds of 33-128 bytes the
+// longest word takes 75 rounds either way on big-merges (mean 37.85 ->
+// 37.58) and 110 -> 109 on big-vocab (mean 65.5 -> 65.2), and a bound for
+// 33-128-byte words would need a build that grows as n^4 in the word
+// length.  So the kernel keeps the function of _merge_fixed_point and
+// changes only what a round costs.
 
 #include <cstdint>
 
@@ -47,90 +88,317 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;
 
-// The fixed point of one word of at most 32 * K ids held by a whole warp,
-// K ids a lane (lane l holds positions K*l .. K*l+K-1; -1 past the word).
-// Called by all 32 lanes together.
-template <int K, class Table>
-__device__ __forceinline__ void merge_long(const Table& t, int lane, int (&id)[K]) {
+// One probe step: slot s against the pair (a, b).  True when the chain
+// ends, at a hit, which sets (rank, merged), or at an empty slot.
+__device__ __forceinline__ bool probe_step(const ht::PairTable&, const int4& s, unsigned a,
+                                           unsigned b, int& rank, int& merged) {
+  if (s.x == static_cast<int>((a << 16) | (b & 0xFFFFu))) {
+    rank = (s.y >> 16) & 0xFFFF;
+    merged = s.y & 0xFFFF;
+    return true;
+  }
+  return s.x == -1;  // no deletions: a key is never stored past an empty slot
+}
+
+__device__ __forceinline__ bool probe_step(const ht::WidePairTable&, const int4& s, unsigned a,
+                                           unsigned b, int& rank, int& merged) {
+  if (s.x == static_cast<int>(a) && s.y == static_cast<int>(b)) {
+    rank = s.z;
+    merged = s.w;
+    return true;
+  }
+  return s.x == -1;
+}
+
+// The (rank, merged) of two pairs, (a0, b0) when go0 and (a1, b1) when
+// go1, else (kInfRank, -1), looked up alike by every lane of a tile: the
+// lanes read the same addresses, so each load is one broadcast
+// transaction.  A probe is split in two, so that a round can shift its
+// word while the first loads are in flight: *_start issues them,
+// *_finish waits for them.
+//
+// Chain: both chains advance together, a slot each a step, each step's
+// two loads issued before either slot is tested; a chain goes on past a
+// slot only when the slot neither matches nor is empty.
+struct ChainStart {
+  unsigned s0, s1;
+  int4 v0, v1;
+};
+
+template <class Table>
+__device__ __forceinline__ ChainStart chain_start(const Table& t, bool go0, unsigned a0,
+                                                        unsigned b0, bool go1, unsigned a1,
+                                                        unsigned b1) {
+  ChainStart c;
+  c.s0 = ht::mix_hash(a0, b0) & t.cap_mask;
+  c.s1 = ht::mix_hash(a1, b1) & t.cap_mask;
+  c.v0 = go0 ? __ldg(t.slots + c.s0) : make_int4(-1, 0, 0, 0);
+  c.v1 = go1 ? __ldg(t.slots + c.s1) : make_int4(-1, 0, 0, 0);
+  return c;
+}
+
+template <class Table>
+__device__ __forceinline__ void chain_finish(const Table& t, ChainStart c, bool go0,
+                                             unsigned a0, unsigned b0, bool go1, unsigned a1,
+                                             unsigned b1, int& r0, int& m0, int& r1, int& m1) {
+  r0 = r1 = Table::kInfRank;
+  m0 = m1 = -1;
+  for (int i = 1;; ++i) {
+    if (go0) go0 = !probe_step(t, c.v0, a0, b0, r0, m0);
+    if (go1) go1 = !probe_step(t, c.v1, a1, b1, r1, m1);
+    if (!(go0 || go1) || i >= t.probe_len) return;
+    c.s0 = (c.s0 + 1) & t.cap_mask;
+    c.s1 = (c.s1 + 1) & t.cap_mask;
+    c.v0 = go0 ? __ldg(t.slots + c.s0) : make_int4(-1, 0, 0, 0);
+    c.v1 = go1 ? __ldg(t.slots + c.s1) : make_int4(-1, 0, 0, 0);
+  }
+}
+
+template <class Table>
+__device__ __forceinline__ void probe_two(const Table& t, bool go0, unsigned a0, unsigned b0,
+                                          bool go1, unsigned a1, unsigned b1, int& r0,
+                                          int& m0, int& r1, int& m1) {
+  chain_finish(t, chain_start(t, go0, a0, b0, go1, a1, b1), go0, a0, b0, go1, a1, b1, r0, m0,
+               r1, m1);
+}
+
+// Lanes: every slot of both chains at once.  Lane i < probe_len of the
+// tile loads slot i of the first chain, lane probe_len + i slot i of the
+// second, and a ballot finds each chain's end: one round trip however
+// long the chains.  Called by all 32 lanes together, when 2 * probe_len
+// <= G.
+template <int G, class Table>
+__device__ __forceinline__ int4 lanes_start(const Table& t, const ht::Tile<G>& tile, bool go0,
+                                            unsigned a0, unsigned b0, bool go1, unsigned a1,
+                                            unsigned b1) {
+  const int pl = t.probe_len;
+  const int lane = tile.lane;
+  const bool second = lane >= pl;
+  const bool go = lane < 2 * pl && (second ? go1 : go0);
+  const unsigned step = static_cast<unsigned>(second ? lane - pl : lane);
+  return go ? __ldg(t.slots + ((ht::mix_hash(second ? a1 : a0, second ? b1 : b0) + step) & t.cap_mask))
+            : make_int4(-1, 0, 0, 0);
+}
+
+template <int G, class Table>
+__device__ __forceinline__ void lanes_finish(const Table& t, const ht::Tile<G>& tile, int4 v,
+                                             bool go0, unsigned a0, unsigned b0, bool go1,
+                                             unsigned a1, unsigned b1, int& r0, int& m0, int& r1,
+                                             int& m1) {
+  const int pl = t.probe_len;
+  const int lane = tile.lane;
+  const bool second = lane >= pl;
+  const bool go = lane < 2 * pl && (second ? go1 : go0);
+  int r = Table::kInfRank;
+  int m = -1;
+  const bool end = go && probe_step(t, v, second ? a1 : a0, second ? b1 : b0, r, m);
+  const unsigned ends = (__ballot_sync(ht::kFullMask, end) >> tile.base) & ((1u << pl << pl) - 1u);
+  const unsigned lo = (1u << pl) - 1u;
+  const int e0 = __ffs(ends & lo) - 1;  // -1: no end within probe_len slots
+  const int e1 = __ffs(ends >> pl) - 1;
+  const int q0 = __shfl_sync(ht::kFullMask, r, e0 < 0 ? 0 : e0, G);
+  const int n0 = __shfl_sync(ht::kFullMask, m, e0 < 0 ? 0 : e0, G);
+  const int q1 = __shfl_sync(ht::kFullMask, r, e1 < 0 ? 0 : pl + e1, G);
+  const int n1 = __shfl_sync(ht::kFullMask, m, e1 < 0 ? 0 : pl + e1, G);
+  const bool hit0 = go0 && e0 >= 0;
+  const bool hit1 = go1 && e1 >= 0;
+  r0 = hit0 ? q0 : Table::kInfRank;
+  m0 = hit0 ? n0 : -1;
+  r1 = hit1 ? q1 : Table::kInfRank;
+  m1 = hit1 ? n1 : -1;
+}
+
+// Which of the two probes a round takes.  The narrow table is sparse (8
+// MB of slots for about 30,000 rules), so its chains nearly always end at
+// their first slot and the chain probe costs one round trip with fewer
+// instructions.  The wide table's chains run longer, and a further slot
+// often lies in another 32-byte sector, another L2 round trip: it takes
+// the lane-parallel probe.
+template <class Table>
+struct LanesProbe {
+  static constexpr bool value = false;
+};
+template <>
+struct LanesProbe<ht::WidePairTable> {
+  static constexpr bool value = true;
+};
+
+// The minimum of v over each tile of G lanes, on every lane of the warp:
+// redux.sync for a whole warp, else a butterfly of G-wide shuffles.
+// redux.sync and shuffles under a mask of fewer than 32 lanes would take
+// the compiler's divergent path (WARPSYNC.COLLECTIVE) whenever the
+// warp's tiles run together, which they do here.
+template <int G>
+__device__ __forceinline__ unsigned tile_min(unsigned v) {
+  if constexpr (G == 32) {
+    return __reduce_min_sync(ht::kFullMask, v);
+  } else {
+#pragma unroll
+    for (int d = G / 2; d > 0; d >>= 1) v = min(v, __shfl_xor_sync(ht::kFullMask, v, d, G));
+    return v;
+  }
+}
+
+// The fixed point of one word of at most G * K ids on each tile of G
+// lanes of the warp, K ids a lane: lane l of a tile holds positions
+// K*l .. K*l+K-1, -1 past the word (a -1 inside it is a PAD, which pairs
+// with nothing and moves with the shift).  Called by all 32 lanes
+// together; the loop runs until every tile's word is done, a tile whose
+// word is done merging nothing, so every collective is warp-wide.
+template <int G, int K, class Table>
+__device__ __forceinline__ void merge_tile(const Table& t, const ht::Tile<G>& tile,
+                                           int (&id)[K]) {
+  static_assert(K == 1 || K == 2 || K == 4, "a lane holds 1, 2 or 4 ids");
   constexpr int kInf = Table::kInfRank;
-  constexpr unsigned full = ht::kFullMask;
+  constexpr int kSpan = G * K;  // the word's positions
+  constexpr unsigned kNone = 0xffffffffu;
+  constexpr unsigned mask = ht::kFullMask;
+  // rank * kSpan + position fits 32 bits for narrow ranks (at most 2^16),
+  // and for wide ones (below 2^26) over at most 32 positions
+  constexpr bool kPacked = kInf <= 0x10000 || kSpan <= 32;
+  static_assert(kPacked || G == 32, "a rank reduced alone needs the tile to be the warp");
+  const int lane = tile.lane;
+  const bool has_next = lane + 1 < G;
+  // the id two positions past a lane's last: the next lane's second id,
+  // or at K = 1 the id two lanes down
+  const bool has_next2 = K > 1 ? has_next : lane + 2 < G;
   int rank[K];
   int merged[K];
 
-  // (rank, merged) of the pair (slot j, its right neighbour)
-  const int next0 = __shfl_down_sync(full, id[0], 1);
+  // (rank, merged) of the pair (slot j, its right neighbour), two at a time
+  {
+    const int next0 = __shfl_down_sync(mask, id[0], 1, G);
+    int right[K];
 #pragma unroll
-  for (int j = 0; j < K; ++j) {
-    const int right = j + 1 < K ? id[j + 1 < K ? j + 1 : j] : (lane < 31 ? next0 : -1);
-    int r = kInf;
-    int m = -1;
-    int msup = 0;
-    if (id[j] >= 0 && right >= 0) {
-      t.lookup(static_cast<unsigned>(id[j]), static_cast<unsigned>(right), r, m, msup);
+    for (int j = 0; j < K; ++j) right[j] = j + 1 < K ? id[j + 1 < K ? j + 1 : j] : (has_next ? next0 : -1);
+    if constexpr (K == 1) {
+      rank[0] = kInf;
+      merged[0] = -1;
+      int msup = 0;
+      if (id[0] >= 0 && right[0] >= 0) {
+        t.lookup(static_cast<unsigned>(id[0]), static_cast<unsigned>(right[0]), rank[0],
+                 merged[0], msup);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j + 1 < K; j += 2) {
+        probe_two(t, id[j] >= 0 && right[j] >= 0, static_cast<unsigned>(id[j]),
+                  static_cast<unsigned>(right[j]), id[j + 1] >= 0 && right[j + 1] >= 0,
+                  static_cast<unsigned>(id[j + 1]), static_cast<unsigned>(right[j + 1]), rank[j],
+                  merged[j], rank[j + 1], merged[j + 1]);
+      }
     }
-    rank[j] = r;
-    merged[j] = m;
   }
 
   while (true) {
-    // the lane's leftmost minimum, then the warp's
+    // independent of p: the shift's operands and the outer neighbours
+    const int id_n0 = __shfl_down_sync(mask, id[0], 1, G);
+    const int id_n2 = __shfl_down_sync(mask, id[K > 1 ? 1 : 0], K > 1 ? 1 : 2, G);
+    const int rank_n = __shfl_down_sync(mask, rank[0], 1, G);
+    const int merged_n = __shfl_down_sync(mask, merged[0], 1, G);
+    const int id_p = __shfl_up_sync(mask, id[K - 1], 1, G);
+
+    // the lane's leftmost minimum (slot lj), and the ids at lj - 1 and
+    // lj + 2 that its merge would pair with, by unrolled selects
     int lr = rank[0];
     int lm = merged[0];
     int lj = 0;
+    int a = lane > 0 ? id_p : -1;
+    int b = K > 2 ? id[K > 2 ? 2 : 0] : K == 2 ? (has_next ? id_n0 : -1) : (has_next2 ? id_n2 : -1);
 #pragma unroll
     for (int j = 1; j < K; ++j) {
       if (rank[j] < lr) {
         lr = rank[j];
         lm = merged[j];
         lj = j;
+        a = id[j - 1];
+        b = j + 2 < K ? id[j + 2 < K ? j + 2 : 0]
+                      : j + 2 == K ? (has_next ? id_n0 : -1) : (has_next2 ? id_n2 : -1);
       }
     }
-    const unsigned best = __reduce_min_sync(full, static_cast<unsigned>(lr));
-    if (best >= static_cast<unsigned>(kInf)) break;  // warp-uniform: done
-    const int src = __ffs(__ballot_sync(full, static_cast<unsigned>(lr) == best)) - 1;
-    const int p = __shfl_sync(full, lane * K + lj, src);
-    const int m = __shfl_sync(full, lm, src);
+
+    // the word's leftmost minimum-rank pair, at position p of lane src;
+    // p = kSpan + 1 (no position, nor the one before it) once the tile's
+    // word is done
+    const int pos0 = lane * K + lj;
+    int p, src;
+    if constexpr (kPacked) {
+      const unsigned best = tile_min<G>(
+          lr < kInf ? static_cast<unsigned>(lr) * kSpan + static_cast<unsigned>(pos0) : kNone);
+      if (__all_sync(mask, best == kNone)) break;  // warp-uniform: every word done
+      p = best == kNone ? kSpan + 1 : static_cast<int>(best % kSpan);
+      src = p / K;
+    } else {
+      const unsigned best = __reduce_min_sync(mask, lr < kInf ? static_cast<unsigned>(lr) : kNone);
+      if (best == kNone) break;  // warp-uniform: the word is done
+      src = __ffs(__ballot_sync(mask, static_cast<unsigned>(lr) == best)) - 1;
+      p = __shfl_sync(mask, pos0, src, G);
+    }
+    const int m = __shfl_sync(mask, lm, src, G);
+    const int left = __shfl_sync(mask, a, src, G);
+    const int right = __shfl_sync(mask, b, src, G);
+
+    // the two pairs the merge touched: (p - 1, p) and (p, p + 1); their
+    // first loads go out before the shift, which runs while they are in
+    // flight
+    int rl, ml, rr, mr;
+    const bool live = p < kSpan;  // tile-uniform: the word merged
+    const bool go0 = live && left >= 0;
+    const bool go1 = live && right >= 0;
+    const bool lanes = LanesProbe<Table>::value && 2 * t.probe_len <= G;  // launch-uniform
+    ChainStart cs{};
+    int4 lv = make_int4(-1, 0, 0, 0);
+    if (lanes) {
+      lv = lanes_start(t, tile, go0, static_cast<unsigned>(left), static_cast<unsigned>(m), go1,
+                       static_cast<unsigned>(m), static_cast<unsigned>(right));
+    } else {
+      cs = chain_start(t, go0, static_cast<unsigned>(left), static_cast<unsigned>(m), go1,
+                       static_cast<unsigned>(m), static_cast<unsigned>(right));
+    }
 
     // apply: position p takes m, every later position its right
     // neighbour's id and pair; the last position becomes PAD
-    const int id_n = __shfl_down_sync(full, id[0], 1);
-    const int rank_n = __shfl_down_sync(full, rank[0], 1);
-    const int merged_n = __shfl_down_sync(full, merged[0], 1);
 #pragma unroll
     for (int j = 0; j < K; ++j) {
       const int pos = lane * K + j;
       if (pos > p) {
-        const int k = j + 1 < K ? j + 1 : j;
-        const bool from_next = j + 1 == K;
-        id[j] = from_next ? (lane < 31 ? id_n : -1) : id[k];
-        rank[j] = from_next ? (lane < 31 ? rank_n : kInf) : rank[k];
-        merged[j] = from_next ? (lane < 31 ? merged_n : -1) : merged[k];
+        if (j + 1 < K) {
+          const int k = j + 1 < K ? j + 1 : j;
+          id[j] = id[k];
+          rank[j] = rank[k];
+          merged[j] = merged[k];
+        } else {
+          id[j] = has_next ? id_n0 : -1;
+          rank[j] = has_next ? rank_n : kInf;
+          merged[j] = has_next ? merged_n : -1;
+        }
       } else if (pos == p) {
         id[j] = m;
       }
     }
 
-    // re-probe the two pairs the merge touched: (p - 1, p) and (p, p + 1)
-    const int next = __shfl_down_sync(full, id[0], 1);
+    if (lanes) {
+      lanes_finish(t, tile, lv, go0, static_cast<unsigned>(left), static_cast<unsigned>(m), go1,
+                   static_cast<unsigned>(m), static_cast<unsigned>(right), rl, ml, rr, mr);
+    } else {
+      chain_finish(t, cs, go0, static_cast<unsigned>(left), static_cast<unsigned>(m), go1,
+                   static_cast<unsigned>(m), static_cast<unsigned>(right), rl, ml, rr, mr);
+    }
 #pragma unroll
     for (int j = 0; j < K; ++j) {
       const int pos = lane * K + j;
-      if (pos == p - 1 || pos == p) {
-        const int right = j + 1 < K ? id[j + 1 < K ? j + 1 : j] : (lane < 31 ? next : -1);
-        int r = kInf;
-        int mg = -1;
-        int msup = 0;
-        if (id[j] >= 0 && right >= 0) {
-          t.lookup(static_cast<unsigned>(id[j]), static_cast<unsigned>(right), r, mg, msup);
-        }
-        rank[j] = r;
-        merged[j] = mg;
+      if (pos == p - 1) {
+        rank[j] = rl;
+        merged[j] = ml;
+      } else if (pos == p) {
+        rank[j] = rr;
+        merged[j] = mr;
       }
     }
   }
 }
 
-// One word a tile of G lanes (K = 1) or a warp (G = 32, K = 2 or 4).
+// One word a tile of G lanes, K ids a lane.
 // Input: int32 ids [W, width] (PAD = -1), or, when raw is not null,
 // uint8 bytes [W, width] and lens [W] seeded through byte_seed.
 template <int G, int K, class Table, typename OutT>
@@ -141,9 +409,7 @@ id_merge_kernel(Table table, const int32_t* __restrict__ ids,
                 const int32_t* __restrict__ lens, int64_t num_words, int width,
                 int padded, OutT* __restrict__ out,
                 unsigned long long* __restrict__ scan) {
-  static_assert(K == 1 || G == 32, "a word of more than 32 ids takes a whole warp");
   constexpr int kWords = kWarpsPerBlock * (32 / G);  // words per block
-  __shared__ int32_t stage[kWarpsPerBlock][32];
   __shared__ int s_block;
   __shared__ int s_excl[kWords];
   __shared__ long long s_base;
@@ -170,13 +436,8 @@ id_merge_kernel(Table table, const int32_t* __restrict__ ids,
                                : __ldg(ids + w * width + pos);
       }
     }
-    if constexpr (K == 1) {
-      int unused = 0;
-      ht::merge_word<G, false>(table, tile, n, id[0], unused, stage[warp]);
-    } else {
-      merge_long<K>(table, wl, id);
-    }
   }
+  merge_tile<G, K>(table, tile, id);  // a tile past the last word merges nothing
 
   // the row's surviving ids: count, and this lane's offset among them
   int c = 0;
@@ -184,10 +445,10 @@ id_merge_kernel(Table table, const int32_t* __restrict__ ids,
   for (int j = 0; j < K; ++j) c += id[j] >= 0 ? 1 : 0;
   int incl = c;
   for (int d = 1; d < G; d <<= 1) {
-    const int v = __shfl_up_sync(tile.mask, incl, d, G);
+    const int v = __shfl_up_sync(ht::kFullMask, incl, d, G);
     if (tile.lane >= d) incl += v;
   }
-  const int total = __shfl_sync(tile.mask, incl, G - 1, G);
+  const int total = __shfl_sync(ht::kFullMask, incl, G - 1, G);
   if (tile.lane == 0) s_excl[slot] = total;
   __syncthreads();
 
@@ -237,9 +498,9 @@ int launch_typed(const Table& table, const int32_t* ids, const int32_t* byte_see
   if (width <= 8) {
     launch_shape<8, 1>(table, ids, byte_seed, raw, lens, num_words, width, padded, out, sc, st);
   } else if (width <= 16) {
-    launch_shape<16, 1>(table, ids, byte_seed, raw, lens, num_words, width, padded, out, sc, st);
+    launch_shape<8, 2>(table, ids, byte_seed, raw, lens, num_words, width, padded, out, sc, st);
   } else if (width <= 32) {
-    launch_shape<32, 1>(table, ids, byte_seed, raw, lens, num_words, width, padded, out, sc, st);
+    launch_shape<8, 4>(table, ids, byte_seed, raw, lens, num_words, width, padded, out, sc, st);
   } else if (width <= 64) {
     launch_shape<32, 2>(table, ids, byte_seed, raw, lens, num_words, width, padded, out, sc, st);
   } else if (width <= 128) {
@@ -269,7 +530,7 @@ int launch(const Table& table, const int32_t* ids, const int32_t* byte_seed,
 // int32 [W] and byte_seed int32 [256]; width <= 128.  out: W + W * width
 // entries of int16 (u16_out) or int32 in the packed layout, or int32
 // [W, width] when padded; scan: int64 [1 + blocks], zeroed (blocks =
-// ceil(W / words a block): 256 / G for width <= 32, else 8).
+// ceil(W / words a block): 32 for width <= 32, else 8).
 // pslots: int32 [C, 4] (key, value, minsuper, 0), 16-byte aligned.
 extern "C" int ht_id_merge(const int32_t* pslots, int64_t cap_mask,
                            int32_t probe_len, const int32_t* ids,

@@ -60,9 +60,9 @@ def _library() -> ctypes.CDLL:
 
 
 def words_per_block(width: int) -> int:
-    """Rows a block of the kernel takes: a tile of 8/16/32 lanes a row up
-    to 32 ids, a warp a row past that."""
-    lanes = 8 if width <= 8 else 16 if width <= 16 else 32
+    """Rows a block of the kernel takes: a tile of 8 lanes a row up to 32
+    ids, a warp a row past that."""
+    lanes = 8 if width <= 32 else 32
     return WARPS_PER_BLOCK * (32 // lanes)
 
 

@@ -2,7 +2,9 @@
 twin, which the wrapper runs for CPU tensors, against the JAX package's
 merge fixed point (``merge_words_packed``, ``merge_words_from_bytes_packed``
 and ``merge_words``) on the char-mode, big-vocab and wide tables and on
-hand-built rules ranked past 2^24; the generated char-mode vocabulary
+hand-built rules ranked past 2^24, on corpus rows and on edge blocks
+(``scripts/profile_merge.py::edge_block``, held to the greedy order
+too); the generated char-mode vocabulary
 through the port's engine against the JAX engine and the oracle; the
 CUDA kernel against the twin on the card.  Token ids are integers:
 every comparison is exact (tolerance 0)."""
@@ -27,6 +29,7 @@ from hutoken_tpu_torch import engine as E  # noqa: E402
 from hutoken_tpu_torch.ops import build as B  # noqa: E402
 from hutoken_tpu_torch.ops import id_merge as IM  # noqa: E402
 from hutoken_tpu_torch.ops import merge as TM  # noqa: E402
+from hutoken_tpu_torch.scripts import profile_merge as PM  # noqa: E402
 from hutoken_tpu_torch.tables import device_tables  # noqa: E402
 
 torch.set_num_threads(1)
@@ -42,7 +45,8 @@ ROWS = 40
 @pytest.fixture(scope="module")
 def tables(tmp_path_factory):
     """name -> (port DeviceTables on the CPU, JAX table tuple, byte seeds
-    or None, id pool for the rows), each built once."""
+    or None, id pool for the rows), each built once; ``.rules[name]`` is
+    the table's rules {(left, right): (rank, merged)}."""
     built = {}
 
     def get(name):
@@ -63,8 +67,10 @@ def tables(tmp_path_factory):
         else:
             jtab = tp.jax_packed_table(enc)
         built[name] = (tab, jtab, enc.byte_seed_ids, _pool(name, ctx, enc))
+        get.rules[name] = enc.pairs
         return built[name]
 
+    get.rules = {}
     return get
 
 
@@ -186,6 +192,87 @@ def test_high_rank_rules_match_jax(width):
     assert np.array_equal(padded, np.asarray(JM.merge_words(jtab, jnp.asarray(block))))
 
 
+def _high_rank_tables():
+    """(rules, port DeviceTables on the CPU, JAX wide table tuple) of
+    ``corpora.high_rank_rules``."""
+    rules, _marker = C.high_rank_rules()
+    enc = types.SimpleNamespace(pair_table=build_pair_table(rules), pairs=rules, byte_seed_ids=None)
+    pt = enc.pair_table
+    jtab = (jnp.asarray(pt.left), jnp.asarray(pt.right), jnp.asarray(pt.rank),
+            jnp.asarray(pt.merged), pt.probe_len, pt.capacity - 1, JM.MODE_PROBE)
+    return rules, device_tables(enc, None, "cpu"), jtab
+
+
+def _greedy(rules: dict, row: np.ndarray) -> list[int]:
+    """The sequential greedy order on one padded id row: merge the
+    leftmost lowest-ranked pair with no PAD side until none has a rule;
+    the freed tail is PAD."""
+    ids = [int(x) for x in row]
+    while True:
+        best = None
+        for i in range(len(ids) - 1):
+            hit = rules.get((ids[i], ids[i + 1])) if ids[i] >= 0 and ids[i + 1] >= 0 else None
+            if hit is not None and (best is None or hit[0] < best[0]):
+                best = (hit[0], i, hit[1])
+        if best is None:
+            return ids
+        _r, i, m = best
+        ids = ids[:i] + [m] + ids[i + 2:] + [-1]
+
+
+@pytest.mark.parametrize("width", PM.EDGE_WIDTHS)
+@pytest.mark.parametrize("name", TABLES + ["high-rank"])
+def test_edge_blocks_match_jax_and_greedy(name, width, tables):
+    """``profile_merge.edge_block`` rows (the first merge at p = 0 and at
+    the row's last pair, PAD at both ends and inside, one id or one pair
+    repeated over the row, rows that merge to one id, an all-PAD row, a
+    one-id row) at widths on both sides of 32, 64 and 128, through the
+    wrapper on the CPU, packed and padded, against JAX
+    ``merge_words_packed`` / ``merge_words`` and the greedy order."""
+    if name == "high-rank":
+        rules, tab, jtab = _high_rank_tables()
+    else:
+        tab, jtab, _seed, _pool = tables(name)
+        rules = tables.rules[name]
+    block = PM.edge_block(rules, width, seed=width)
+    want = np.asarray(JM.merge_words(jtab, jnp.asarray(block)))
+    padded = IM.id_merge(tab, torch.from_numpy(block), False, padded=True).numpy()
+    assert np.array_equal(padded, want)
+    assert padded.tolist() == [_greedy(rules, r) for r in block]
+    packed = IM.id_merge(tab, torch.from_numpy(block), False).numpy()
+    assert np.array_equal(packed, np.asarray(JM.merge_words_packed(jtab, jnp.asarray(block), False)))
+    counts = (padded >= 0).sum(axis=1)
+    assert counts[9] == 0 and counts[10] == 1
+    assert (counts[3:5] <= (width + 1) // 2).all()  # every pair of the repeat merged
+    assert (counts[5:9] == 1).any()  # a row merged to one id
+    a, b = block[0, :2]
+    assert padded[0, 0] == rules[(a, b)][1] and (block[1, -2:] == [a, b]).all()
+
+
+@pytest.mark.parametrize("width", PM.EDGE_WIDTHS)
+def test_repeated_byte_words_match_jax_and_oracle(width, tables):
+    """Byte words of one repeated letter ("t" x 128 and shorter: "tt" is
+    a rule of both tables, so every pair has one rank and the leftmost
+    wins; "a" and " ", whose pairs have none) and of a repeated pair
+    ("le"), through ``id_merge_bytes`` against JAX
+    ``merge_words_from_bytes_packed`` and the oracle."""
+    words = [c * n for c in (b"t", b"a", b" ", b"le") for n in (width // len(c), width // 2, 2)]
+    raw = np.zeros((len(words), width), dtype=np.uint8)
+    lens = np.array([len(w) for w in words], dtype=np.int32)
+    for i, w in enumerate(words):
+        raw[i, : len(w)] = np.frombuffer(w, dtype=np.uint8)
+    for name in ("big-vocab", "big-merges"):
+        tab, jtab, seeds, _pool = tables(name)
+        want = np.asarray(JM.merge_words_from_bytes_packed(
+            jtab, jnp.asarray(seeds.astype(np.int32)), jnp.asarray(raw), jnp.asarray(lens), False))
+        got = IM.id_merge_bytes(tab, torch.from_numpy(raw), torch.from_numpy(lens), False).numpy()
+        assert np.array_equal(got, want)
+        ctx, _enc = tp.load(name)
+        rows = tp.unpack(got, len(words))
+        assert rows == [oracle.encode_word(ctx, w, None) for w in words]
+        assert len(rows[0]) <= (width + 1) // 2  # every pair of "t" x width merged
+
+
 def test_high_rank_block_puts_the_minimum_past_32():
     rm = C.high_rank_rules()
     rules, (ma, mb) = rm
@@ -216,7 +303,7 @@ def test_id_merge_empty_and_rejects():
 
 def test_words_per_block():
     assert [IM.words_per_block(w) for w in (1, 8, 9, 16, 17, 32, 33, 64, 128)] == [
-        32, 32, 16, 16, 8, 8, 8, 8, 8]
+        32, 32, 32, 32, 32, 32, 8, 8, 8]
 
 
 def test_id_merge_digests_its_shared_header():
@@ -283,26 +370,39 @@ def test_char_fixture_engine_matches_jax_and_oracle(char_fixture, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", TABLES)
+@pytest.mark.parametrize("name", TABLES + ["high-rank"])
 def test_kernel_matches_twin_on_cuda(name, tables):
     """The kernel against the twin at every width, packed (both output
-    types on narrow tables) and padded, and on byte words."""
+    types on narrow tables) and padded, on the edge blocks
+    (``profile_merge.edge_block``) at widths 31-128, and on byte words;
+    "high-rank" is the hand-built wide rules ranked from 2^24."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    tab, _jtab, seeds, pool = tables(name)
+    if name == "high-rank":
+        rm = C.high_rank_rules()
+        rules, tab, _jtab = _high_rank_tables()
+        seeds = None
+        blocks = [C.high_rank_block(rm, ROWS, width, seed=width) for width in (34, 64, 128)]
+    else:
+        tab, _jtab, seeds, pool = tables(name)
+        rules = tables.rules[name]
+        blocks = [_rows(pool, width, seed=width) for width in WIDTHS]
+    blocks += [PM.edge_block(rules, width, seed=width) for width in PM.EDGE_WIDTHS]
     dtab = tab.to("cuda")
-    for width in WIDTHS:
-        block = torch.from_numpy(_rows(pool, width, seed=width)).cuda()
+    for rows in blocks:
+        block = torch.from_numpy(rows).cuda()
+        W = block.shape[0]
         for u16 in ((False,) if tab.wide else (True, False)):
             want = TM.merge_words_packed(dtab, block, u16)
-            read = ROWS + int(want[:ROWS].to(torch.int64).sum())
+            read = W + int(want[:W].to(torch.int64).sum())
             launches = IM.id_merge.launches + IM.id_merge.wide_launches
             got = IM.id_merge(dtab, block, u16)
             torch.cuda.synchronize()
             assert IM.id_merge.launches + IM.id_merge.wide_launches == launches + 1
             assert torch.equal(got[:read], want[:read])
         assert torch.equal(IM.id_merge(dtab, block, False, padded=True), TM.merge_fixed_point(dtab, block))
-        if seeds is not None:
+    if seeds is not None:
+        for width in WIDTHS:
             raw, lens = _word_block(b"".join(w.strip() for w in tp.corpus_words()), width, seed=width)
             r, n = torch.from_numpy(raw).cuda(), torch.from_numpy(lens).cuda()
             want = TM.merge_words_from_bytes_packed(dtab, r, n, False)
