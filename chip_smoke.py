@@ -1801,7 +1801,7 @@ def drivers(label: str) -> None:
           "profile_merge: two long-word blocks on each table and a char-mode block, kernel and twin")
     out = run_driver("profile_raw --mode both --mb 8",
                      lambda: profile_raw.main(["--mode", "both", "--mb", "8"]), ("seg_merge", "fused_merge"))
-    check("[raw] run 1 host stages" in out, "profile_raw: the raw path's stage split")
+    check("[raw] run 0 host stages" in out, "profile_raw: the raw path's stage split")
 
 
 def profiler_process() -> None:

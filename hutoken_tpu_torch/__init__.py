@@ -42,6 +42,7 @@ from typing import Any, Optional
 
 from . import oracle
 from .context import TokenizerContext
+from .spans import RECORD as _SPANS
 from .utils.logging import initialize_logging, log_debug
 
 __version__ = "0.1.0"
@@ -217,13 +218,18 @@ def encode(text: str) -> list[int]:
 
 def batch_encode(texts: list[str], num_threads: int = 1) -> list[list[int]]:
     """Encode a batch of documents.  ``num_threads`` applies to the host
-    backend; the device engine has its own pipeline threads."""
+    backend; the device engine has its own pipeline threads.  Under a
+    ``torch.profiler`` the call is traced as ``facade.batch_encode``
+    (``spans.py``)."""
     if _ctx is None:
         raise RuntimeError(f"hutoken: Error encoding texts: {_ENCODE_UNINIT_MSG}")
     try:
-        if _use_device(batch=True):
-            return _get_engine().encode_batch(texts)
-        return _encode_host(texts, num_threads)
+        with _SPANS.entry("facade.batch_encode") as tr:
+            if _use_device(batch=True):
+                return _get_engine().encode_batch(texts)
+            if tr:
+                tr.count("path.host")
+            return _encode_host(texts, num_threads)
     except Exception as e:
         traceback.print_exc(file=sys.stderr)
         raise RuntimeError(f"hutoken: Error encoding texts: {e}") from e

@@ -68,7 +68,6 @@ from __future__ import annotations
 import os
 import queue
 import threading
-import time
 from typing import Optional
 
 import numpy as np
@@ -84,6 +83,7 @@ from .ops.split import RawChunkEncoder, find_cut, supported_alphabet
 from .parallel.mesh import DataMesh
 from .parallel.sharded import replicas, row_slices
 from .pretokenize import encode_remap, split_words, split_words_pattern
+from .spans import RECORD
 from .tables import build_encoder_tables, device_tables, max_token_id
 from .utils.mem import tune_allocator
 
@@ -202,13 +202,9 @@ class TorchTokenizer:
         # (alphabet or capacity), over_bucket (words > 32 bytes),
         # partial_flag (never, with the full-table probe)
         self.stat_host_cause: dict[str, int] = {}
-        # host seconds of the raw path by stage, summed over threads and
-        # runs: producer (its busy time; of it find_cut and alphabet),
-        # main_wait (the main thread waiting for a chunk), launch (upload
-        # and chunk program; of it nonzero_sync, the one host sync a
-        # chunk), copy_wait and splice (drainers), assembly
-        self.stat_raw_seconds: dict[str, float] = {}
-        self._stage_lock = threading.Lock()
+        # the process's span record (spans.py): each encode call's stages
+        # and counts, kept while a torch.profiler records
+        self.spans = RECORD
         self._raw_enc = None
         # decode: the facade's backend="device" asks for the device path
         # without the HUTOKEN_TPU_DECODE override; the decoded-bytes table
@@ -365,10 +361,6 @@ class TorchTokenizer:
             )
         return flat, doc_offs
 
-    def _add_seconds(self, stage: str, seconds: float) -> None:
-        with self._stage_lock:
-            self.stat_raw_seconds[stage] = self.stat_raw_seconds.get(stage, 0.0) + seconds
-
     def warmup(self) -> None:
         """Build the kernels and launch the primary block shape once,
         ``BUCKETS[0]`` bytes x ``ROW_BLOCKS[BUCKETS[0]]`` zero-length rows
@@ -400,13 +392,14 @@ class TorchTokenizer:
         the native interner).  Outputs are unchanged — the cache is a
         pure speedup — so this only matters for memory bounds and cold
         benchmarking."""
-        self._word_cache.clear()
-        self._cache_pool = np.zeros(1 << 16, dtype=np.int32)
-        self._cache_used = 0
-        if self._interner is not None:
-            self._interner.reset()
-        self._gid_start = np.full(1 << 15, -1, dtype=np.int64)
-        self._gid_len = np.zeros(1 << 15, dtype=np.int64)
+        with self.spans.entry("engine.reset_cache"):
+            self._word_cache.clear()
+            self._cache_pool = np.zeros(1 << 16, dtype=np.int32)
+            self._cache_used = 0
+            if self._interner is not None:
+                self._interner.reset()
+            self._gid_start = np.full(1 << 15, -1, dtype=np.int64)
+            self._gid_len = np.zeros(1 << 15, dtype=np.int64)
 
     def _launch_byte_words(self, bucket: int, items: list, pending: list) -> None:
         """items = (key, word_bytes) pairs; packs length-sorted fixed-row
@@ -650,11 +643,25 @@ class TorchTokenizer:
     # ------------------------------------------------------------ encode
 
     def _encode_core(self, texts: list[str]):
-        for t in texts:
-            if "\x00" in t:
-                raise ValueError("embedded null character")
-        if self._cache_used > (1 << 26):  # bound the span pool
-            self.reset_cache()
+        with self.spans.entry("engine.encode_core") as tr:
+            route = tr and tr.child("engine.route")
+            for t in texts:
+                if "\x00" in t:
+                    raise ValueError("embedded null character")
+            if self._cache_used > (1 << 26):  # bound the span pool
+                self.reset_cache()
+            path = self._route(texts)
+            if tr:
+                route.close()
+                tr.count("path." + path)
+            if path == "raw":
+                return self._encode_core_raw(texts, tr)
+            if path == "pipelined":
+                return self._encode_core_pipelined(texts, tr)
+            return self._encode_core_py(texts)
+
+    def _route(self, texts: list[str]) -> str:
+        """The core a batch takes: ``raw``, ``pipelined`` or ``python``."""
         # the JAX engine's routing (engine.py:543-556): big batches whose
         # sampled unique-byte ratio is high take the raw path; a wide
         # table never does, even under HUTOKEN_TPU_RAW=1 (the JAX gate is
@@ -674,20 +681,23 @@ class TorchTokenizer:
             if raw_env == "1" or (
                 total >= RAW_MIN_BYTES and self._raw_probe(texts) >= RAW_THRESH
             ):
-                return self._encode_core_raw(texts)
+                return "raw"
         if (
             self.ctx.compiled_pattern is None
             and self.ctx.prefix is None
             and self._native_split_ok
         ):
-            return self._encode_core_pipelined(texts)
-        return self._encode_core_py(texts)
+            return "pipelined"
+        return "python"
 
     # ------------------------------------------- device launch and copy
 
     def _to_device(self, arr: np.ndarray, device: Optional[torch.device] = None) -> torch.Tensor:
-        """``arr`` on ``device`` (default: the engine's)."""
+        """``arr`` on ``device`` (default: the engine's).  Its bytes are
+        the traced call's ``bytes.h2d`` (on the CPU, where the tensor
+        aliases the array, the bytes a card would take)."""
         device = self.device if device is None else device
+        self.spans.count("bytes.h2d", arr.nbytes)
         if device.type == "cuda":
             # one host copy, straight into pinned memory: a copy from
             # pageable memory would wait for every kernel already queued
@@ -753,6 +763,7 @@ class TorchTokenizer:
         queue them: each shard's counts, then at most its own token
         bound of tokens."""
         self.stat_device_bytes += int(tok_bound)
+        self.spans.count("bytes.device", int(tok_bound))
         staged = [self._start_copy(packed[: min(r + b, packed.shape[0])]) for packed, r, b in handle]
         pending.append((staged, keys, [r for _p, r, _b in handle], tok_bound, redo_src))
 
@@ -811,6 +822,7 @@ class TorchTokenizer:
             res_len[key_arr] = counts
             flagged = np.nonzero(counts_raw & 0x8000)[0]
             self.stat_device_words += k
+            self.spans.count("words.device", k)
             self.stat_flagged_words += int(flagged.size)
             if flagged.size:
                 raw_src, lens_src = redo_src
@@ -831,10 +843,17 @@ class TorchTokenizer:
 
     # ------------------------------------------------ pipelined core
 
-    def _encode_core_pipelined(self, texts: list[str]):
+    def _encode_core_pipelined(self, texts: list[str], tr=None):
         """Group-pipelined batch encode (default parser, no prefix); see
         the module docstring.  Words are interned into a persistent
-        native word->gid map, so only first-seen words are resolved."""
+        native word->gid map, so only first-seen words are resolved.
+        ``tr``: the traced call's ``engine.encode_core`` span, under which
+        each stage is recorded (the workers' too), or None.  On the
+        calling thread the ``engine.split_wait`` spans take every moment
+        of the group loop that is not resolving or launching: cutting the
+        groups and starting the threads before the first group, and
+        joining the producer after the last."""
+        wait = tr and tr.child("engine.split_wait")
         if self._interner is None:
             self._interner = WordInterner()
         interner = self._interner
@@ -888,6 +907,9 @@ class TorchTokenizer:
                         rest = order[: n_tot - cut]
                         if force:
                             host_tail.append((gids[rest], raw[rest], lens[rest]))
+                            if tr:
+                                tr.count("words.host_tail", len(rest))
+                                tr.count("bytes.host_tail", int(lens[rest].sum()))
                         else:
                             parts.append((gids[rest], raw[rest], lens[rest]))
                 items = carry_ids[b]
@@ -909,7 +931,11 @@ class TorchTokenizer:
                     if group is None:
                         splitq.put(None)
                         return
-                    splitq.put(interner.split_intern_strs(group))
+                    busy = tr and tr.child("engine.split_intern")
+                    item = interner.split_intern_strs(group)
+                    if busy:
+                        busy.close()
+                    splitq.put(item)
             except BaseException as e:  # re-raised on the main thread
                 splitq.put(e)
 
@@ -953,12 +979,15 @@ class TorchTokenizer:
                     if n_put == n_groups:
                         prepq.put(None)
                 item = splitq.get()
+                if wait:
+                    wait.close()
                 if item is None:
                     break
                 if isinstance(item, BaseException):
                     raise item
                 n_done += 1
                 wg, dwo, nb, new_len, prev = item
+                resolve = tr and tr.child("engine.resolve")
                 n_new = len(new_len)
                 self._ensure_gid_capacity(prev + n_new)
                 if n_new:
@@ -979,9 +1008,22 @@ class TorchTokenizer:
                 group_refs.append(wg)
                 dwo_parts.append(dwo[1:] + words_so_far)
                 words_so_far += int(dwo[-1])
+                if tr:
+                    resolve.close()
+                    tr.count("words", len(wg))
+                    tr.count("words.new", n_new)
+                    tr.count("bytes.new", int(new_len.sum()))
+                launch = tr and tr.child("engine.launch")
                 flush(False)
                 _push_drain()
+                if launch:
+                    launch.close()
+                wait = tr and tr.child("engine.split_wait")
             producer.join()
+            if wait:
+                wait.close()
+            # the last launch span also takes the host tail's hand-off
+            launch = tr and tr.child("engine.launch")
             flush(True)
             _push_drain()
 
@@ -994,16 +1036,24 @@ class TorchTokenizer:
             if host_tail:
 
                 def _tail_worker() -> None:
+                    busy = tr and tr.child("engine.host_tail")
                     try:
                         tail_results.extend(self._encode_host_tail_parts(host_tail))
                     except BaseException as e:  # re-raised on the main thread
                         tail_err.append(e)
+                    if busy:
+                        busy.close()
 
                 tail_thread = threading.Thread(target=_tail_worker, daemon=True)
                 tail_thread.start()
+            if launch:
+                launch.close()
         finally:
             drainq.put(None)
+            wait = tr and tr.child("engine.device_wait")
             drainer.join()
+            if wait:
+                wait.close()
             if producer.is_alive():  # an error left the producer mid-stream
                 prepq.put(None)
                 while producer.is_alive():
@@ -1011,6 +1061,7 @@ class TorchTokenizer:
                         splitq.get(timeout=0.1)
                     except queue.Empty:
                         pass
+        asm = tr and tr.child("engine.assemble")
         results = [drain_results.get(i) for i in range(len(pending))]
         for r in results:
             if isinstance(r, BaseException):
@@ -1019,7 +1070,13 @@ class TorchTokenizer:
             pending, self._gid_start, self._gid_len, None, results=results
         )
         if tail_thread is not None:
+            if asm:
+                asm.close()
+            wait = tr and tr.child("engine.tail_wait")
             tail_thread.join()
+            if wait:
+                wait.close()
+            asm = tr and tr.child("engine.assemble")
             if tail_err:
                 raise tail_err[0]
             for gids, toks, spans in tail_results:
@@ -1034,15 +1091,15 @@ class TorchTokenizer:
         dwo_all = np.concatenate(dwo_parts)
         doc_prefix_run = [False] * len(texts)
         if all_refs.size == 0:
-            return (
-                np.zeros(0, dtype=np.int32),
-                np.zeros(len(texts) + 1, dtype=np.int64),
-                doc_prefix_run,
+            flat_tokens = np.zeros(0, dtype=np.int32)
+            doc_offs = np.zeros(len(texts) + 1, dtype=np.int64)
+        else:
+            flat_tokens, doc_offs = assemble(
+                all_refs, dwo_all, self._gid_start[:n_g], self._gid_len[:n_g],
+                self._cache_pool,
             )
-        flat_tokens, doc_offs = assemble(
-            all_refs, dwo_all, self._gid_start[:n_g], self._gid_len[:n_g],
-            self._cache_pool,
-        )
+        if asm:
+            asm.close()
         return flat_tokens, doc_offs, doc_prefix_run
 
     def _resolve_new_bytes(self, gids, nb, nl, no, bseed, carry_byte) -> None:
@@ -1056,6 +1113,8 @@ class TorchTokenizer:
             g1 = gids[m1]
             self._gid_start[g1] = base + np.arange(len(ids1), dtype=np.int64)
             self._gid_len[g1] = 1
+            self.spans.count("words.single", len(ids1))
+            self.spans.count("bytes.single", len(ids1))
         lo_b = 1
         for b in BUCKETS:
             sel = np.flatnonzero((nl > lo_b) & (nl <= b))
@@ -1064,21 +1123,33 @@ class TorchTokenizer:
                 carry_byte[b].append((gids[sel], pack_rows(nb, no, nl, sel, b), nl[sel]))
         if (nl > MAX_DEVICE_LEN).any():
             nbb = nb.tobytes()
-            for i in np.flatnonzero(nl > MAX_DEVICE_LEN):
+            longw = np.flatnonzero(nl > MAX_DEVICE_LEN)
+            for i in longw:
                 sp = self._pool_append(
                     self._encode_word_host(nbb[no[i] : no[i] + nl[i]], None)
                 )
                 self._gid_start[gids[i]], self._gid_len[gids[i]] = sp
+            self.spans.count("words.long", len(longw))
+            self.spans.count("bytes.long", int(nl[longw].sum()))
 
     # ------------------------------------------------ raw cache-cold core
 
-    def _encode_core_raw(self, texts: list[str]):
+    def _encode_core_raw(self, texts: list[str], tr=None):
         """Cache-cold batch encode by byte chunks (the JAX engine's
         ``_encode_core_raw``, which imports the JAX chunk program; this
         copy drives the port's).  Empty documents keep zero counts and
         never enter a chunk; the rest of a document with no safe cut
         inside a full chunk, and a chunk outside the supported alphabet,
-        go to the exact host path."""
+        go to the exact host path.
+
+        ``tr``: the traced call's span, under which each stage is
+        recorded as ``engine.raw.<stage>``: ``producer`` (the producer's
+        busy time between its puts; under it ``find_cut`` and
+        ``alphabet``), ``main_wait`` (the main thread waiting for a
+        chunk), ``launch`` (upload and chunk program; ``nonzero_sync``,
+        the chunk's one host sync, falls inside it), ``copy_wait`` and
+        ``splice`` (the drainers, ``RawChunkEncoder.finish``) and
+        ``assembly``."""
         if self._raw_enc is None:
             self._raw_enc = RawChunkEncoder(
                 self, C=int(os.environ.get("HUTOKEN_TPU_RAW_C", 1 << 22))
@@ -1089,14 +1160,14 @@ class TorchTokenizer:
         chunkq: queue.Queue = queue.Queue(maxsize=4)
 
         def _producer() -> None:
-            t_start = time.perf_counter()
-            blocked = cut_s = alpha_s = 0.0
+            busy = tr and tr.child("engine.raw.producer")
 
             def put(item) -> None:
-                nonlocal blocked
-                t = time.perf_counter()
+                nonlocal busy
+                if busy:
+                    busy.close()
                 chunkq.put(item)
-                blocked += time.perf_counter() - t
+                busy = tr and tr.child("engine.raw.producer")
 
             try:
                 bufs: list[np.ndarray] = []
@@ -1105,13 +1176,14 @@ class TorchTokenizer:
                 size = 0
 
                 def emit() -> None:
-                    nonlocal bufs, segs, segdoc, size, alpha_s
+                    nonlocal bufs, segs, segdoc, size
                     if not size:
                         return
                     chunk = np.concatenate(bufs) if len(bufs) > 1 else bufs[0]
-                    t = time.perf_counter()
+                    alpha = busy and busy.child("engine.raw.alphabet")
                     ok = supported_alphabet(chunk)
-                    alpha_s += time.perf_counter() - t
+                    if alpha:
+                        alpha.close()
                     put((
                         chunk,
                         np.asarray(segs, dtype=np.int32),
@@ -1136,9 +1208,10 @@ class TorchTokenizer:
                                 emit()
                             continue
                         # cut the oversized document at a safe word start
-                        t = time.perf_counter()
+                        cutting = busy and busy.child("engine.raw.find_cut")
                         cut = find_cut(b, pos, pos + room)
-                        cut_s += time.perf_counter() - t
+                        if cutting:
+                            cutting.close()
                         if cut < 0:
                             if size:
                                 emit()  # retry with a full chunk's room
@@ -1161,9 +1234,8 @@ class TorchTokenizer:
                         pos = cut
                         emit()
                 emit()
-                self._add_seconds("producer", time.perf_counter() - t_start - blocked)
-                self._add_seconds("find_cut", cut_s)
-                self._add_seconds("alphabet", alpha_s)
+                if busy:
+                    busy.close()
                 chunkq.put(None)
             except BaseException as e:  # re-raised on the main thread
                 chunkq.put(e)
@@ -1197,9 +1269,10 @@ class TorchTokenizer:
         metas: list = []
         try:
             while True:
-                t = time.perf_counter()
+                wait = tr and tr.child("engine.raw.main_wait")
                 item = chunkq.get()
-                self._add_seconds("main_wait", time.perf_counter() - t)
+                if wait:
+                    wait.close()
                 if item is None:
                     break
                 if isinstance(item, BaseException):
@@ -1210,13 +1283,14 @@ class TorchTokenizer:
                     results[len(metas) - 1] = None
                     continue
                 sem.acquire()
-                t = time.perf_counter()
+                launch = tr and tr.child("engine.raw.launch")
                 try:
                     handles = enc.launch(chunk, seg_ends)
                 except BaseException:
                     sem.release()
                     raise
-                self._add_seconds("launch", time.perf_counter() - t)
+                if launch:
+                    launch.close()
                 drainq.put((len(metas) - 1, chunk, handles))
         finally:
             drainq.put(None)
@@ -1229,7 +1303,7 @@ class TorchTokenizer:
                     except queue.Empty:
                         pass
 
-        t_asm = time.perf_counter()
+        asm = tr and tr.child("engine.raw.assembly")
         doc_counts = np.zeros(n_docs, dtype=np.int64)
         flat_parts: list[np.ndarray] = []
         cause = self.stat_host_cause
@@ -1243,7 +1317,9 @@ class TorchTokenizer:
             else:
                 toks, seg_counts, stats = res
                 self.stat_device_bytes += stats["device_bytes"]
+                self.spans.count("bytes.device", stats["device_bytes"])
                 self.stat_device_words += stats["words"]
+                self.spans.count("words.device", stats["words"])
                 self.stat_flagged_words += stats["flagged_words"]
                 for k in ("over_bucket", "partial_flag"):
                     if stats[k]:
@@ -1252,7 +1328,8 @@ class TorchTokenizer:
             flat_parts.append(toks)
         flat = np.concatenate(flat_parts) if flat_parts else np.zeros(0, dtype=np.int32)
         doc_offs = np.concatenate((np.zeros(1, dtype=np.int64), np.cumsum(doc_counts)))
-        self._add_seconds("assembly", time.perf_counter() - t_asm)
+        if asm:
+            asm.close()
         return flat, doc_offs, [False] * n_docs
 
     # ------------------------------------------------ python-split core

@@ -35,8 +35,6 @@ each equal to the original.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -216,7 +214,7 @@ def chunk_words(chunk: torch.Tensor, seg_ends: torch.Tensor):
 
 
 def encode_chunk(tab, chunk: torch.Tensor, seg_ends: torch.Tensor, *,
-                 Fcap: int, u16_out: bool, add_seconds=None):
+                 Fcap: int, u16_out: bool, span=None):
     """The raw chunk program (counterpart of ``_raw_encode_chunk_jit``,
     plain u16/i32 stream only).
 
@@ -233,16 +231,16 @@ def encode_chunk(tab, chunk: torch.Tensor, seg_ends: torch.Tensor, *,
     * ``toks``: the T ids in byte order, then filler; int16 holding
       uint16 bit patterns when ``u16_out``.
 
-    ``add_seconds(stage, seconds)``, when given, receives the host
-    seconds of ``chunk_words`` as ``nonzero_sync``: the wait for the
-    device to reach the chunk's one host sync.
+    ``span``, a traced call's span (``spans.py``) or None: under it
+    ``chunk_words`` is recorded as ``engine.raw.nonzero_sync``, the wait
+    for the device to reach the chunk's one host sync.
     """
     n = chunk.shape[0]
     dev = chunk.device
-    t = time.perf_counter()
+    sync = span and span.child("engine.raw.nonzero_sync")
     word_start, word_len = chunk_words(chunk, seg_ends)
-    if add_seconds is not None:
-        add_seconds("nonzero_sync", time.perf_counter() - t)
+    if sync:
+        sync.close()
     long_w = word_len > MAX_WORD
     # long words go to the kernel with length 0: it skips them
     ids = seg_merge(
@@ -299,15 +297,18 @@ class RawChunkEncoder:
     def launch(self, chunk_np: np.ndarray, seg_ends: np.ndarray):
         """Launch one chunk (uint8, at most C bytes, documents ending at
         the int32 cumulative ``seg_ends``).  Returns opaque handles for
-        :meth:`finish`."""
+        :meth:`finish`, which carry the traced call's span, if any, to
+        the thread that finishes the chunk."""
         tok = self.tok
+        call = tok.spans.current()
         meta, toks = encode_chunk(
             self.tab, tok._to_device(chunk_np), tok._to_device(seg_ends),
-            Fcap=self.Fcap, u16_out=self.u16, add_seconds=tok._add_seconds,
+            Fcap=self.Fcap, u16_out=self.u16, span=call,
         )
         # the stream's length T is on the device: copy all n slots back
         # rather than wait for the meta block first
-        return tok._start_copy(meta), tok._start_copy(toks), seg_ends.shape[0], seg_ends
+        return (tok._start_copy(meta), tok._start_copy(toks), seg_ends.shape[0], seg_ends,
+                call)
 
     def finish(self, handles, chunk_np: np.ndarray):
         """Wait for one launch; returns ``(tokens int32 [T'], seg_counts
@@ -318,14 +319,15 @@ class RawChunkEncoder:
         ``partial_flag``, always 0 with the full table).
 
         ``chunk_np`` must be the bytes given to :meth:`launch`."""
-        meta_staged, toks_staged, n_docs, seg_ends = handles
-        t = time.perf_counter()
+        meta_staged, toks_staged, n_docs, seg_ends, call = handles
+        wait = call and call.child("engine.raw.copy_wait")
         meta = self.tok._host_view(meta_staged)
         W, T, F = (int(x) for x in meta[:3])
         if F > self.Fcap:
             return None
         toks = self.tok._host_view(toks_staged)[:T].astype(np.int32)
-        self.tok._add_seconds("copy_wait", time.perf_counter() - t)
+        if wait:
+            wait.close()
         seg_counts = np.diff(meta[3 : 3 + n_docs].astype(np.int64), prepend=0)
         n = chunk_np.shape[0]
         stats = {
@@ -339,7 +341,7 @@ class RawChunkEncoder:
             return toks, seg_counts, stats
         fr = meta[3 + n_docs : 3 + n_docs + 3 * F].reshape(F, 3)
         # records come in byte order, so insert positions are sorted
-        t = time.perf_counter()
+        splice = call and call.child("engine.raw.splice")
         parts: list[np.ndarray] = []
         cursor = 0
         for bstart, blen, tpos in fr.tolist():
@@ -355,5 +357,6 @@ class RawChunkEncoder:
         parts.append(toks[cursor:])
         stats["device_bytes"] = n - stats["over_bucket"]
         out = np.concatenate(parts)
-        self.tok._add_seconds("splice", time.perf_counter() - t)
+        if splice:
+            splice.close()
         return out, seg_counts, stats

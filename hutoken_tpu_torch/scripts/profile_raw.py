@@ -12,8 +12,10 @@ the oracle), then ``--runs`` cold runs of ``encode_batch_arrays``
 ``torch.cuda.synchronize()``): MB/s, the device byte share, the host
 bytes by cause and the kernels' launches.
 
-A raw run also prints its host stages, from the engine's
-``stat_raw_seconds`` (host clock, summed over the run's threads):
+After the timed runs, the raw mode makes one more cold run under
+``torch.profiler`` (CPU activity) and prints its host stages from the
+program's span record (``spans.py``, ``engine.raw.<stage>``; seconds
+summed over the run's threads, as "run 0 host stages"):
 
 * ``producer``: the producer thread's busy time (UTF-8 encode, chunk
   assembly), of which ``find_cut`` (the safe cut of a document longer
@@ -40,10 +42,25 @@ import os
 import sys
 
 from ..corpora import build_unique_corpus
+from ..spans import RECORD
 from .common import add_device_arg, launch_counts, load_ctx, open_device, wall
 
 STAGES = ("producer", "find_cut", "alphabet", "main_wait", "launch", "nonzero_sync",
           "copy_wait", "splice", "assembly")
+
+
+def traced_stages(eng, docs, device) -> tuple[dict, float]:
+    """(seconds by raw stage, wall seconds) of one cold run under
+    ``torch.profiler``, from the span record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng.reset_cache()
+    RECORD.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        _out, dt = wall(lambda: eng.encode_batch_arrays(docs), device)
+    spans = RECORD.summary()["spans"]
+    RECORD.clear()
+    return {k: spans.get(f"engine.raw.{k}", {}).get("total_s", 0.0) for k in STAGES}, dt
 
 
 def main(argv=None) -> int:
@@ -76,17 +93,17 @@ def main(argv=None) -> int:
             for r in range(args.runs):
                 eng.reset_cache()
                 d0, c0, l0 = eng.stat_device_bytes, dict(eng.stat_host_cause), launch_counts()
-                s0 = dict(eng.stat_raw_seconds)
                 _out, dt = wall(lambda: eng.encode_batch_arrays(docs), args.device)
                 cause = {k: v - c0.get(k, 0) for k, v in eng.stat_host_cause.items() if v - c0.get(k, 0)}
                 launches = {k: v - l0[k] for k, v in launch_counts().items() if v - l0[k]}
                 print(f"[{label}] [{mode}] run {r}: {dt:.3f} s = {total / dt / 1e6:.2f} MB/s "
                       f"device_byte_share={(eng.stat_device_bytes - d0) / total:.4f} "
                       f"cause={cause} launches={launches}", flush=True)
-                if mode == "raw":
-                    secs = {k: eng.stat_raw_seconds.get(k, 0.0) - s0.get(k, 0.0) for k in STAGES}
-                    print(f"[{label}] [raw] run {r} host stages (s, summed over threads; wall "
-                          f"{dt:.3f}): " + ", ".join(f"{k} {v:.4f}" for k, v in secs.items()), flush=True)
+            if mode == "raw":
+                secs, dt = traced_stages(eng, docs, args.device)
+                print(f"[{label}] [raw] run 0 host stages (traced, after the timed runs; s, summed "
+                      f"over threads; wall {dt:.3f} under the profiler): "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in secs.items()), flush=True)
     finally:
         if old is None:
             os.environ.pop("HUTOKEN_TPU_RAW", None)

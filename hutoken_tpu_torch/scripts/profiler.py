@@ -8,10 +8,13 @@ clock.
 
 With ``--trace DIR`` the ``--iters`` runs go under ``torch.profiler``
 (CPU and CUDA activities), the Chrome trace is written to
-``DIR/trace.json`` (open it in Perfetto or ``chrome://tracing``), and the
-driver prints the top device operations by self time and the device's
-busy share (device self time over the window's wall); a window in which
-the tracer recorded no CUDA activity on the card is an error (exit 1),
+``DIR/trace.json`` (open it in Perfetto or ``chrome://tracing``) with the
+program's own spans of those runs appended on the trace's clock (the
+engine's stages, each run's ``engine.reset_cache`` included, category
+``hutoken``; ``spans.py``), and the script prints the top device
+operations by self time and the device's busy share (device self time
+over the window's wall); a window in which the tracer recorded no CUDA
+activity on the card is an error (exit 1),
 never a share of 0.  Without it, or after it, each run prints its MB/s
 on the wall clock, the window closed by ``torch.cuda.synchronize()``,
 and on the card the last line gives the encode kernels' launch counts
@@ -29,6 +32,7 @@ import sys
 import time
 
 from ..corpora import build_corpus
+from ..spans import RECORD
 from .common import add_device_arg, launch_counts, load_ctx, open_device, sync, top_device_ops
 
 
@@ -62,12 +66,16 @@ def main(argv=None) -> int:
         from torch.profiler import ProfilerActivity, profile
 
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if args.device == "cuda" else [])
+        RECORD.clear()
         with profile(activities=acts) as prof:
             secs = loop()
         os.makedirs(args.trace, exist_ok=True)
         path = os.path.join(args.trace, "trace.json")
         prof.export_chrome_trace(path)
-        print(f"trace of {args.iters} runs written to {path}", flush=True)
+        n_spans = RECORD.append_to_chrome_trace(path)
+        RECORD.clear()
+        print(f"trace of {args.iters} runs written to {path}, with {n_spans} program spans",
+              flush=True)
         busy, top = top_device_ops(prof) if args.device == "cuda" else (0.0, [])
         if busy > 0:
             print(f"[{label}] {args.iters} runs of {total / 1e6:.2f} MB: wall {secs:.3f} s under the "

@@ -338,7 +338,7 @@ def test_morphology_equal_on_a_fake_foma(monkeypatch):
 HOST_METHODS = [
     "_pool_reserve", "_pool_append", "_pool_append_flat", "_split", "_prefix_token_run",
     "_seed_word", "_encode_word_host", "_split_dedup_py", "encode_batch",
-    "encode_batch_arrays", "reset_cache", "_launch_byte_words", "_launch_id_words",
+    "encode_batch_arrays", "_launch_byte_words", "_launch_id_words",
     "_resolve_generic", "_raw_probe", "_host_encode_text", "_host_chunk",
     "_native_word_encoder", "_encode_host_tail_parts", "_ensure_gid_capacity",
     "_launch_byte_blocks", "_assemble_np", "_build_decode_fast_path", "decode_batch",
@@ -360,6 +360,41 @@ def _code(obj):
 @pytest.mark.parametrize("name", HOST_METHODS)
 def test_engine_host_methods_are_copies(name):
     assert _code(getattr(PE.TorchTokenizer, name)) == _code(getattr(JE.TpuTokenizer, name))
+
+
+def _cache_state(tok):
+    return {
+        "dict": dict(tok._word_cache), "used": tok._cache_used,
+        "pool": tok._cache_pool.tolist(),
+        "interned": None if tok._interner is None else tok._interner.count(),
+        "gid_start": tok._gid_start.tolist(), "gid_len": tok._gid_len.tolist(),
+    }
+
+
+@pytest.mark.parametrize("core", ["pipelined", "python"])
+def test_reset_cache_empties_what_the_jax_engine_empties(core, monkeypatch):
+    """``reset_cache`` is out of the copy rule (it opens the traced
+    ``engine.reset_cache`` span): after an encode and a reset, the span
+    pool, the dict cache, the interner and the gid arrays are empty as
+    the JAX engine's are, and the next encode equals the JAX engine's and
+    the oracle's."""
+    monkeypatch.setenv("HUTOKEN_TPU_PALLAS", "interpret")
+    ctx, _enc = tp.load("small")
+    ptok, jtok = PE.TorchTokenizer(ctx, device="cpu"), JE.TpuTokenizer(ctx)
+    if core == "python":
+        ptok._native_split_ok = jtok._native_split_ok = False
+    for tok in (ptok, jtok):
+        tok.encode_batch(TEXTS)
+        assert tok._cache_used > 0
+        tok.reset_cache()
+    state = _cache_state(ptok)
+    assert state == _cache_state(jtok)
+    assert state["dict"] == {} and state["used"] == 0 and state["interned"] in (None, 0)
+    assert not any(state["pool"]) and set(state["gid_start"]) == {-1} and not any(state["gid_len"])
+    docs = TEXTS[::-1] + [" reset and encoded again"]
+    got = ptok.encode_batch(docs)
+    assert got == jtok.encode_batch(docs)
+    assert got == [J_oracle.encode(ctx, d) for d in docs]
 
 
 def test_engine_constants_equal():
