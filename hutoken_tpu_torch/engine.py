@@ -65,6 +65,7 @@ shards on other processes (refused).
 
 from __future__ import annotations
 
+import itertools
 import os
 import queue
 import threading
@@ -75,6 +76,7 @@ import torch
 
 from . import oracle
 from .context import TokenizerContext
+from .id_table import IdTable
 from .native import WordInterner, assemble, load_native, pack_rows
 from .ops.decode import decode_tokens_blob, decode_tokens_blob_tot, write_chunk
 from .ops.fused_merge import MAX_WORD, merge_words_from_bytes_fused
@@ -180,6 +182,10 @@ class TorchTokenizer:
         self._gid_start = np.full(1 << 15, -1, dtype=np.int64)
         self._gid_len = np.zeros(1 << 15, dtype=np.int64)
         self._prefix_run = None
+        # one shared int for each id the lists can hold
+        self._id_table = IdTable(
+            itertools.chain(ctx.vocab.id2str, ctx.vocab.str2id.values())
+        )
         # 16-bit output only when every id the encoder can emit fits:
         # the largest id, not the line count (``vocab_size``), which a
         # vocabulary with id holes keeps far below its top id.  The JAX
@@ -327,16 +333,30 @@ class TorchTokenizer:
         return uword_list, all_refs, doc_ref_counts, doc_prefix_run
 
     def encode_batch(self, texts: list[str]) -> list[list[int]]:
+        """One token list a document.  Its items are the engine's shared
+        ints (``id_table.py``): one gather over the call's ids, then each
+        document's slice of the gathered objects.  In a traced call the
+        caller's span counts ``ids.listed``, the ids of the lists, and
+        ``ids.shared``, those taken from the table."""
         flat, doc_offs, doc_prefix_run = self._encode_core(texts)
+        objs = self._id_table.take(flat)
+        shared = len(objs)
+        bounds = doc_offs.tolist()
         prefix_run = None
         out_docs: list[list[int]] = []
         for i in range(len(texts)):
-            toks = flat[doc_offs[i] : doc_offs[i + 1]].tolist()
+            toks = objs[bounds[i] : bounds[i + 1]].tolist()
             if doc_prefix_run[i]:
                 if prefix_run is None:
-                    prefix_run = self._prefix_token_run()
-                toks = list(prefix_run) + toks
+                    run = np.asarray(self._prefix_token_run(), dtype=np.int64)
+                    prefix_run = self._id_table.take(run).tolist()
+                toks = prefix_run + toks
+                shared += len(prefix_run)
             out_docs.append(toks)
+        span = self.spans.current()
+        if span is not None:
+            span.count("ids.listed", sum(map(len, out_docs)))
+            span.count("ids.shared", shared)
         return out_docs
 
     def encode_batch_arrays(

@@ -337,8 +337,7 @@ def test_morphology_equal_on_a_fake_foma(monkeypatch):
 
 HOST_METHODS = [
     "_pool_reserve", "_pool_append", "_pool_append_flat", "_split", "_prefix_token_run",
-    "_seed_word", "_encode_word_host", "_split_dedup_py", "encode_batch",
-    "encode_batch_arrays", "_launch_byte_words", "_launch_id_words",
+    "_seed_word", "_encode_word_host", "_split_dedup_py", "encode_batch_arrays", "_launch_byte_words", "_launch_id_words",
     "_resolve_generic", "_raw_probe", "_host_encode_text", "_host_chunk",
     "_native_word_encoder", "_encode_host_tail_parts", "_ensure_gid_capacity",
     "_launch_byte_blocks", "_assemble_np", "_build_decode_fast_path", "decode_batch",
@@ -360,6 +359,64 @@ def _code(obj):
 @pytest.mark.parametrize("name", HOST_METHODS)
 def test_engine_host_methods_are_copies(name):
     assert _code(getattr(PE.TorchTokenizer, name)) == _code(getattr(JE.TpuTokenizer, name))
+
+
+def _output_case(case, tmp_path):
+    """(the port's context, the JAX engine's or None, documents) of one
+    kind of input to ``encode_batch``: enough first-seen words for full
+    64-row blocks, so that the device path runs."""
+    words = ft.CORPUS.split()
+    docs = [" ".join(words[i : i + 40]) for i in range(0, len(words), 40)] + ["", "x"]
+    if case == "byte-level":
+        jctx, pctx = _pair("small", None)
+        return pctx, jctx, docs + [f"q{i}x{'ab' * (i % 30)} z{i}" for i in range(200)]
+    if case in ("char-mode", "prefix-run"):
+        jctx, pctx = _pair("charmode", None)
+        ascii_docs = [" ".join(w for w in d.split() if w.isascii()) for d in docs]
+        if case == "prefix-run":
+            ascii_docs = [" " + d for d in ascii_docs] + ["  two spaces", " "]
+        return pctx, jctx, ascii_docs
+    # ids 70,000 / 70,001 on 258 lines (tests/test_torch_quirk_vocab.py):
+    # the JAX engine cuts ids past 16 bits on so few lines
+    b2u = P.bytemaps.gpt2_bytes_to_unicode()
+    id2str = {b: b2u[b].encode("utf-8") for b in range(256)}
+    id2str[70000], id2str[70001] = "he".encode(), "hel".encode()
+    vpath, spath = str(tmp_path / "holes-vocab.txt"), str(tmp_path / "holes-special.txt")
+    P.formats.write_vocab_file(vpath, id2str)
+    P.formats.write_special_chars_file(spath, P.bytemaps.gpt2_special_chars_table())
+    rng = np.random.default_rng(0)
+    letters = np.array(list("abcdefgxyz"))
+    hel = ["hel" + "".join(rng.choice(letters, rng.integers(1, 9))) for _ in range(600)]
+    return PCtx.load(vpath, spath, is_byte_encoder=True), None, [
+        " ".join(hel[i : i + 30]) for i in range(0, 600, 30)
+    ]
+
+
+@pytest.mark.parametrize("case", ["byte-level", "char-mode", "prefix-run", "id-holes"])
+def test_engine_encode_batch_output(case, tmp_path, monkeypatch):
+    """``encode_batch`` is out of the copy rule: its lists take the id
+    table's shared ints.  On each kind of input, with blocks cut to 64 /
+    16 rows so that the device path runs, its lists equal the port's
+    oracle, the native engine and, where the JAX engine takes the case,
+    the JAX engine's, as lists of ``int``."""
+    monkeypatch.setenv("HUTOKEN_TPU_PALLAS", "interpret")
+    monkeypatch.setitem(PE.ROW_BLOCKS, 32, 64)
+    monkeypatch.setitem(PE.ROW_BLOCKS, 128, 16)
+    pctx, jctx, docs = _output_case(case, tmp_path)
+    tok = PE.TorchTokenizer(pctx, device="cpu")
+    got = tok.encode_batch(docs)
+    want = [P_oracle.encode(pctx, d) for d in docs]
+    assert got == want
+    assert P_native.NativeEngine(pctx).encode_batch(docs, 2) == want
+    if jctx is not None:
+        assert JE.TpuTokenizer(jctx).encode_batch(docs) == want
+    assert tok.stat_device_words > 0
+    assert all(type(t) is list and all(type(x) is int for x in t) for t in got)
+    if case == "prefix-run":
+        run = tok._prefix_token_run()
+        assert run and all(t[: len(run)] == run for t in got if t)
+    if case == "id-holes":
+        assert not tok._id_table.dense and any(70001 in t for t in got)
 
 
 def _cache_state(tok):

@@ -2,8 +2,8 @@
 nothing is kept without a profiler and the ids do not change with one;
 a traced call's span tree, its worker threads' spans included; the
 counts of where a call's new words went, against the engine's lifetime
-counters; the clock shared with the profiler's Chrome trace; the raw
-path's stages; and the cap."""
+counters; the ids the facade's lists hold; the clock shared with the
+profiler's Chrome trace; the raw path's stages; and the cap."""
 
 import json
 import threading
@@ -140,6 +140,30 @@ def test_counts_are_conserved_on_every_call(calls):
     assert cold["bytes.h2d"] > cold["bytes.device"]
     if calls == 2:
         assert counts[1].get("words.new", 0) < cold["words.new"]
+
+
+@pytest.mark.parametrize("case", ["byte-level", "prefix-run"])
+def test_the_facade_counts_the_ids_it_lists(case):
+    """``ids.listed`` and ``ids.shared`` ride on ``facade.batch_encode``:
+    every id of the lists, the prefix run's included, is one of the id
+    table's objects, so the two are equal, and equal to the lists'
+    lengths."""
+    if case == "byte-level":
+        _init()
+        docs = _docs()
+    else:
+        vocab_path, special_path = ft.write_char_mode_fixture()
+        hutoken.initialize(vocab_path, special_path, prefix="\u2581", is_byte_encoder=False,
+                           device="cpu")
+        docs = [" " + " ".join(w for w in d.split() if w.isascii()) for d in _docs()[:20]]
+    out = _traced(lambda: hutoken.batch_encode(docs))
+    (facade,) = [s for s in RECORD.spans() if s.name == "facade.batch_encode"]
+    listed = sum(map(len, out))
+    assert listed > 0
+    assert facade.counts["ids.listed"] == facade.counts["ids.shared"] == listed
+    assert RECORD.summary()["counts"]["ids.listed"] == listed
+    if case == "prefix-run":
+        assert hutoken._get_engine()._prefix_token_run()
 
 
 def test_the_host_backend_counts_its_path():
