@@ -35,15 +35,24 @@ it keeps its own copies of the host modules it needs.
 
 from __future__ import annotations
 
-import os
-import sys
-import traceback
-from typing import Any, Optional
+# the set-up record's first stamp, before the package imports anything
+from .setup_record import SETUP as _SETUP
 
-from . import oracle
-from .context import TokenizerContext
-from .spans import RECORD as _SPANS
+_SETUP.stamp("package", full=True)
+
+import os  # noqa: E402
+import sys  # noqa: E402
+import traceback  # noqa: E402
+from typing import Any, Optional  # noqa: E402
+
+from . import oracle  # noqa: E402
+from .context import TokenizerContext  # noqa: E402
+from .spans import RECORD as _SPANS  # noqa: E402
+from .spans import pinned_bytes as _pinned_bytes  # noqa: E402
 from .utils.logging import initialize_logging, log_debug
+
+# the set-up record reads the pinned allocator from here on
+_SETUP.read_pinned = _pinned_bytes
 
 __version__ = "0.1.0"
 
@@ -109,14 +118,15 @@ def initialize(model_or_path: str, *args: Any, **kwargs: Any):
                 f"The provided merges file '{merges_file}' does not exist."
             )
         _reset()
-        _ctx = TokenizerContext.load(
-            model_or_path,
-            special_chars_file,
-            prefix=kwargs.get("prefix", None),
-            is_byte_encoder=kwargs.get("is_byte_encoder", False),
-            pattern=kwargs.get("pattern", None),
-            merges_file_path=merges_file,
-        )
+        with _SETUP.stage("context"):
+            _ctx = TokenizerContext.load(
+                model_or_path,
+                special_chars_file,
+                prefix=kwargs.get("prefix", None),
+                is_byte_encoder=kwargs.get("is_byte_encoder", False),
+                pattern=kwargs.get("pattern", None),
+                merges_file_path=merges_file,
+            )
         return None
 
     from .hf_import import import_hf_tokenizer  # optional dependency
@@ -126,14 +136,15 @@ def initialize(model_or_path: str, *args: Any, **kwargs: Any):
     )
     try:
         _reset()
-        _ctx = TokenizerContext.load(
-            vocab_file,
-            special_chars_file,
-            prefix=prefix,
-            is_byte_encoder=is_byte_encoder,
-            pattern=kwargs.get("pattern", None),
-            merges_file_path=merges_file_path,
-        )
+        with _SETUP.stage("context"):
+            _ctx = TokenizerContext.load(
+                vocab_file,
+                special_chars_file,
+                prefix=prefix,
+                is_byte_encoder=is_byte_encoder,
+                pattern=kwargs.get("pattern", None),
+                merges_file_path=merges_file_path,
+            )
     except Exception as e:
         traceback.print_exc(file=sys.stderr)
         raise RuntimeError(
@@ -220,11 +231,14 @@ def batch_encode(texts: list[str], num_threads: int = 1) -> list[list[int]]:
     """Encode a batch of documents.  ``num_threads`` applies to the host
     backend; the device engine has its own pipeline threads.  Under a
     ``torch.profiler`` the call is traced as ``facade.batch_encode``
-    (``spans.py``)."""
+    (``spans.py``), and its end reads the span record's gauges; the
+    process's first untraced calls are stamped in the set-up record
+    (``setup_record.py``)."""
     if _ctx is None:
         raise RuntimeError(f"hutoken: Error encoding texts: {_ENCODE_UNINIT_MSG}")
     try:
-        with _SPANS.entry("facade.batch_encode") as tr:
+        with _SPANS.entry("facade.batch_encode", gauges=True) as tr, \
+                _SETUP.call(tr is not None):
             if _use_device(batch=True):
                 return _get_engine().encode_batch(texts)
             if tr:

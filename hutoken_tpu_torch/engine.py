@@ -65,6 +65,7 @@ shards on other processes (refused).
 
 from __future__ import annotations
 
+import importlib
 import itertools
 import os
 import queue
@@ -85,6 +86,7 @@ from .ops.split import RawChunkEncoder, find_cut, supported_alphabet
 from .parallel.mesh import DataMesh
 from .parallel.sharded import replicas, row_slices
 from .pretokenize import encode_remap, split_words, split_words_pattern
+from .setup_record import SETUP
 from .spans import RECORD
 from .tables import build_encoder_tables, device_tables, max_token_id
 from .utils.mem import tune_allocator
@@ -166,13 +168,18 @@ class TorchTokenizer:
                 "is False; pass device='cpu' to run the plain PyTorch path"
             )
         self.ctx = ctx
-        self.tables = build_encoder_tables(ctx)
-        self.dev_tables = device_tables(self.tables, ctx, self.device)
+        # the set-up record (setup_record.py): each table's build as a
+        # stage of the process's set-up
+        with SETUP.stage("encoder_tables"):
+            self.tables = build_encoder_tables(ctx)
+        with SETUP.stage("device_tables", full=True):
+            self.dev_tables = device_tables(self.tables, ctx, self.device)
         # the shards that merge each block: one on the engine's device
         # without a mesh (``_mesh`` None, which gates the raw path)
         self._mesh = mesh
         self._shards = DataMesh((self.device,)) if mesh is None else mesh
-        self._shard_tables = replicas(self.dev_tables, self._shards)
+        with SETUP.stage("replicas"):
+            self._shard_tables = replicas(self.dev_tables, self._shards)
         # per-word token spans: one flat pool, the dict cache for the
         # python path and gid-indexed span arrays for the native interner
         self._word_cache: dict[bytes, tuple[int, int]] = {}
@@ -183,9 +190,10 @@ class TorchTokenizer:
         self._gid_len = np.zeros(1 << 15, dtype=np.int64)
         self._prefix_run = None
         # one shared int for each id the lists can hold
-        self._id_table = IdTable(
-            itertools.chain(ctx.vocab.id2str, ctx.vocab.str2id.values())
-        )
+        with SETUP.stage("id_table"):
+            self._id_table = IdTable(
+                itertools.chain(ctx.vocab.id2str, ctx.vocab.str2id.values())
+            )
         # 16-bit output only when every id the encoder can emit fits:
         # the largest id, not the line count (``vocab_size``), which a
         # vocabulary with id holes keeps far below its top id.  The JAX
@@ -218,7 +226,8 @@ class TorchTokenizer:
         self._prefer_device_decode = prefer_device_decode
         self._dec_decoded_flat = None
         self._dec_bpt = None
-        self._build_decode_fast_path()
+        with SETUP.stage("decode_fast_path"):
+            self._build_decode_fast_path()
 
     # ------------------------------------------------- host layer
 
@@ -389,23 +398,33 @@ class TorchTokenizer:
         warmup (hutoken_tpu/engine.py:1561-1572), so that ``nvcc`` and
         first-launch costs stay out of a timed run.  On the CUDA devices
         it also builds the segmented kernel where the raw path may run.
-        On the CPU it runs the twins."""
+        On the CPU it runs the twins.  The set-up record stamps its start,
+        each kernel library it loads (``warmup.<library>``) and its end."""
         b = BUCKETS[0]
         rows = self._row_blocks[b]
-        if self.device.type == "cuda" and self.dev_tables.byte_seed is not None \
-                and not self.dev_tables.wide and self._mesh is None:
-            from .ops import seg_merge
+        byte_mode = self.dev_tables.byte_seed is not None
+        with SETUP.stage("warmup", full=True):
+            if self.device.type == "cuda" and byte_mode \
+                    and not self.dev_tables.wide and self._mesh is None:
+                from .ops import seg_merge
 
-            seg_merge._library()
-        if self.dev_tables.byte_seed is not None:
-            handle = self._merge_bytes_block(
-                np.zeros((rows, b), dtype=np.uint8), np.zeros(rows, dtype=np.int32)
-            )
-        else:
-            handle = self._merge_block(np.full((rows, b), -1, dtype=np.int32))
-        for packed, _rows, _bound in handle:
-            if packed.device.type == "cuda":
-                torch.cuda.synchronize(packed.device)
+                seg_merge._library()
+                SETUP.stamp("warmup.seg_merge")
+            if self.device.type == "cuda":
+                # the launch's own library, loaded here so that its load
+                # is stamped apart from the first launch
+                lib = "fused_merge" if byte_mode else "id_merge"
+                importlib.import_module(f".ops.{lib}", __package__)._library()
+                SETUP.stamp(f"warmup.{lib}")
+            if byte_mode:
+                handle = self._merge_bytes_block(
+                    np.zeros((rows, b), dtype=np.uint8), np.zeros(rows, dtype=np.int32)
+                )
+            else:
+                handle = self._merge_block(np.full((rows, b), -1, dtype=np.int32))
+            for packed, _rows, _bound in handle:
+                if packed.device.type == "cuda":
+                    torch.cuda.synchronize(packed.device)
 
     def reset_cache(self) -> None:
         """Drop all memoized word tokenizations (pool, dict cache, and

@@ -1,0 +1,10 @@
+"""The host's build, in seconds: ``initialize``'s context load (the
+vocabulary and merges files parsed) and the engine's host stages (the
+encoder tables, the replicas, the id table, the decode fast path), all
+of the engine's stamped build but ``device_tables``."""
+
+from portbench.metrics import _setup
+
+
+def read(obs):
+    return _setup.stages(_setup.HOST_BUILD, "seconds")
