@@ -27,7 +27,7 @@ own:
    for more rounds than the other short words, timed on one raw-path
    chunk (4 MB) of the unique corpus.  Each kernel's bound counts the bytes it must move, the pair
    table's slots as the plain run probes them;
-4. gather probe: ``hutoken_tpu_torch.profile_gather`` at every shape of
+4. gather probe: ``hutoken_tpu_torch.scripts.profile_gather`` at every shape of
    the three TPU gather-profiling scripts and at its edge shapes (ragged
    counts, views at a 4-byte offset, ``gather_two_level`` on 2^22
    indices into tables in and past L2, ``gather_rows`` on rows of 5 and 33 indices, ``gather_cols``
@@ -126,19 +126,14 @@ own:
    zeroed before each and read after it (no new kernel): ``entry.main``:
    ``entry()``'s fn on the card equal to ``compact_output`` of the fused
    twin on the read prefix, the fused kernel launched, then
-   ``dryrun_multichip(4)`` on ``data_mesh(4)``;
-   ``bench.main(["--quick"])`` at the 24 MB headline, its last line the
-   four-key headline and its configuration line with conformance true,
-   the fused kernel launched; ``benchmark_train`` at 1 MB / 1,000 merges;
-   ``benchmark_sharded`` over ``data_mesh(1)``, ``(2)``, ``(4)``; three
-   ``profiler`` runs under ``torch.profiler`` into a temporary directory,
-   in a process of its own (its busy share must be above 0 and its
-   fused kernel launched, by the counts it prints);
-   ``profile_merge`` (the fused kernel at widths 8, 16, 32, the id merge
-   kernel against its eager twin on 1,024 x 128 blocks, narrow and wide,
-   and on a 16,384 x 32 char-mode block); ``profile_raw --mode both`` on
-   8 MB with the raw path's host stages, ``seg_merge`` launched.  Each
-   prints its lines and its time;
+   ``dryrun_multichip(4)`` on ``data_mesh(4)``; ``benchmark_train`` at
+   1 MB / 1,000 merges; ``benchmark_sharded`` over ``data_mesh(1)``,
+   ``(2)``, ``(4)``; ``profile_merge`` (the fused kernel at widths 8,
+   16, 32, the id merge kernel against its eager twin on 1,024 x 128
+   blocks, narrow and wide, and on a 16,384 x 32 char-mode block);
+   ``profile_raw --mode both`` on 8 MB with the raw path's host stages,
+   ``seg_merge`` launched.  Each prints its lines and its time.  End to
+   end, encode is measured by the benchmark (``portbench/``) alone;
 12. char mode and long words through the id merge kernel
    (``ops/id_merge.py``, ``csrc/id_merge.cu``): (a) the generated
    32,000-id char-mode vocabulary (``corpora.write_char_fixture``);
@@ -190,11 +185,11 @@ from hutoken_tpu_torch.corpora import (  # noqa: E402
     write_char_fixture,
     write_wide_fixture,
 )
-from hutoken_tpu_torch.bench import raw_chunk  # noqa: E402
-from hutoken_tpu_torch.scripts.common import fixture_paths, kernel_ms, launch_counts, sync  # noqa: E402
+from hutoken_tpu_torch.scripts.common import card_label, cuda_time, fixture_paths, launch_counts, sync  # noqa: E402
 
 ZIPF_MB = 24
 UNIQUE_MB = 8
+RAW_CHUNK = 1 << 22  # bytes of a raw-path chunk, HUTOKEN_TPU_RAW_C's default
 BLOCK_WORDS = 16384  # ROW_BLOCKS[32] of the port's engine
 CHECK_WORDS = 12345  # odd on purpose: the kernel takes any word count
 ORACLE_SAMPLE = 40
@@ -230,7 +225,6 @@ PEER_TIMEOUT = 300
 # phase 11: the 16-bit repair's vocabularies get enough distinct words
 # for two full blocks of each bucket (ROW_BLOCKS 16,384 / 1,024)
 HOLE_WORDS, HOLE_LONG_WORDS = 40000, 2500
-PROFILER_TIMEOUT = 300
 # phase 12: the slice encoded with the "▁" prefix (the Python core), the
 # long-word documents (Zipf documents, each with LONG_PER_DOC compounds
 # of 33-128 bytes), and the id kernel's block shapes in the engine
@@ -439,9 +433,9 @@ def fused_vs_plain(device: str, docs: list[str], label: str, configs: dict) -> d
             # in turns, inside this call; the pair table is meant to stay
             # in L2, so launches are not separated by a cache flush
             p1 = time_ms(lambda: compact_output(FM.fused_merge_plain(tab, r, n)[0], u16), 2)
-            k1 = kernel_ms(lambda: FM.merge_words_from_bytes_fused(tab, r, n, u16))
+            k1 = cuda_time(lambda: FM.merge_words_from_bytes_fused(tab, r, n, u16))
             c1 = time_ms(lambda: compact_output(ids, u16), 10)
-            k2 = kernel_ms(lambda: FM.merge_words_from_bytes_fused(tab, r, n, u16))
+            k2 = cuda_time(lambda: FM.merge_words_from_bytes_fused(tab, r, n, u16))
             row = {"ms": (k1 + k2) / 2, "plain_ms": p1, "compact_output_ms": c1,
                    **bound_entry(nbytes)}
             result["by"][f"{name} L={width}"] = row
@@ -540,6 +534,20 @@ def length_chunk(device: str, tab, docs: list[str], rng):
             torch.tensor(lens, dtype=torch.int32, device=device)), (long_rounds, short_rounds)
 
 
+def raw_chunk(docs: list[str]):
+    """The corpus's first raw-path chunk: whole documents up to
+    ``RAW_CHUNK`` bytes, as the engine's producer fills one; (bytes,
+    document ends)."""
+    blobs, size = [], 0
+    for d in docs:
+        b = d.encode()
+        if size + len(b) > RAW_CHUNK:
+            break
+        blobs.append(b)
+        size += len(b)
+    return np.frombuffer(b"".join(blobs), dtype=np.uint8), np.cumsum([len(b) for b in blobs])
+
+
 def seg_vs_plain(device: str, docs: list[str], words: list[str], label: str) -> dict:
     """Phase 3, segmented merge: kernel == twin on the card, the
     every-length chunk made of the words of ``words``; times on one
@@ -578,8 +586,8 @@ def seg_vs_plain(device: str, docs: list[str], words: list[str], label: str) -> 
         n = args[0].shape[0]
         nbytes = n + 8 * args[1].shape[0] + 1024 + probed_slot_bytes(tab, pairs) + 4 * n
         p1 = time_ms(lambda: SM.seg_merge_plain(tab, *args), 2)
-        k1 = kernel_ms(lambda: SM.seg_merge(tab, *args))
-        k2 = kernel_ms(lambda: SM.seg_merge(tab, *args))
+        k1 = cuda_time(lambda: SM.seg_merge(tab, *args))
+        k2 = cuda_time(lambda: SM.seg_merge(tab, *args))
         row = {"ms": (k1 + k2) / 2, "plain_ms": p1, **bound_entry(nbytes)}
         result["by"][name] = row
         print(f"[{label}] seg merge {name:10s} raw chunk {n} B, {args[1].shape[0]} words: "
@@ -749,13 +757,13 @@ def gather_probe(device: str, label: str) -> list[dict]:
     Returns one kernels-line entry per TPU kernel: the worst error over
     its shapes, the times at the largest shape of its Pallas loop, and the
     share of its bound from the time under a cold L2."""
-    from hutoken_tpu_torch import profile_gather as PG
     from hutoken_tpu_torch.ops import gather as G
+    from hutoken_tpu_torch.scripts import profile_gather as PG
 
     empty_ms = PG.empty_launch_ms()
     print(f"[{label}] empty launch (torch.cuda._sleep(0)) {empty_ms:.4f} ms")
     G.reset_launches()
-    rows = PG.run(device, timer=PG.cuda_time, label=label)
+    rows = PG.run(device, timer=cuda_time, label=label)
     for r in rows:
         if r["probe"] != "cols":
             continue
@@ -1776,25 +1784,16 @@ def run_driver(what: str, fn, want_kernels=()) -> str:
 
 
 def drivers(label: str) -> None:
-    """Phase 11: the port's drivers (``hutoken_tpu_torch/entry.py``,
-    ``bench.py`` and ``scripts/``) in this process on the card, the
-    profiler in a process of its own."""
-    from hutoken_tpu_torch import bench, entry
+    """Phase 11: the port's drivers (``hutoken_tpu_torch/entry.py`` and
+    ``scripts/``) in this process on the card."""
+    from hutoken_tpu_torch import entry
     from hutoken_tpu_torch.scripts import benchmark_sharded, benchmark_train, profile_merge, profile_raw
 
     # entry()'s fn on the card held to the fused twin, then dryrun_multichip(4)
     run_driver("entry", lambda: entry.main(["--shards", "4"]), ("fused_merge",))
-    out = run_driver("bench --quick", lambda: bench.main(["--quick"]), ("fused_merge",))
-    lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
-    check(set(lines[-1]) == {"metric", "value", "unit", "vs_baseline"} and lines[-1]["value"] > 0,
-          f"bench: the last line is the headline: {lines[-1]}")
-    full = [x for x in lines if x.get("metric") == lines[-1]["metric"] and "conformance" in x]
-    check(bool(full) and full[0]["conformance"] is True and full[0]["input_mb"] > 23.9,
-          "bench: the 24 MB headline ran with conformance on")
     run_driver("benchmark_train --mb 1 --merges 1000",
                lambda: benchmark_train.main(["--mb", "1", "--merges", "1000"]))
     run_driver("benchmark_sharded", lambda: benchmark_sharded.main(["--shards", "1,2,4"]), ("fused_merge",))
-    profiler_process()
     out = run_driver("profile_merge", lambda: profile_merge.main([]),
                      ("fused_merge", "fused_merge_wide", "id_merge", "id_merge_wide"))
     check(out.count("eager fixed point") == 5 and out.count("equal to the eager twin") == 5,
@@ -1802,28 +1801,6 @@ def drivers(label: str) -> None:
     out = run_driver("profile_raw --mode both --mb 8",
                      lambda: profile_raw.main(["--mode", "both", "--mb", "8"]), ("seg_merge", "fused_merge"))
     check("[raw] run 0 host stages" in out, "profile_raw: the raw path's stage split")
-
-
-def profiler_process() -> None:
-    """``scripts/profiler.py --trace`` in a process of its own, as a user
-    runs it: it must write the trace, measure a busy share above 0 and
-    launch the fused kernel (its own counts, printed at its end)."""
-    import subprocess
-
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="hutoken-trace-") as tmp:
-        proc = subprocess.run(
-            [sys.executable, "-m", "hutoken_tpu_torch.scripts.profiler", "--iters", "3", "--trace", tmp],
-            cwd=HERE, capture_output=True, text=True, timeout=PROFILER_TIMEOUT)
-        print(proc.stdout, end="")
-        check(proc.returncode == 0, f"profiler: exited {proc.returncode}:\n{proc.stderr[-3000:]}")
-        check(os.path.isfile(os.path.join(tmp, "trace.json")), "profiler: the Chrome trace")
-    share = [float(x.rsplit("busy share ", 1)[1]) for x in proc.stdout.splitlines() if "busy share " in x]
-    check(len(share) == 1 and share[0] > 0, f"profiler: one busy share above 0: {share}")
-    counts = [json.loads(x[len("launches "):]) for x in proc.stdout.splitlines() if x.startswith("launches {")]
-    check(len(counts) == 1 and counts[0]["fused_merge"] > 0, f"profiler: the fused kernel launched: {counts}")
-    print(f"(11) profiler --trace (own process): busy share {share[0]}; sub-phase "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def merge_entry(name, source, replaces, launches, per_run, res, key, by) -> dict:
@@ -1930,7 +1907,6 @@ def id_vs_plain(device: str, zipf: list[str], unique: list[str], label: str, cha
     from hutoken_tpu_torch.engine import TorchTokenizer
     from hutoken_tpu_torch.ops import id_merge as IM
     from hutoken_tpu_torch.ops import merge as TM
-    from hutoken_tpu_torch.profile_gather import cuda_time
     from hutoken_tpu_torch.scripts.profile_merge import (
         EDGE_WIDTHS,
         block_of,
@@ -2001,7 +1977,7 @@ def id_vs_plain(device: str, zipf: list[str], unique: list[str], label: str, cha
         rounds = int((seeded - counts.cpu().numpy()).max()) + 1
         if key.startswith("edges"):
             check(merged > 0, f"(12d) {key}: no row merged")
-            warm, cold = kernel_ms(kernel), cuda_time(kernel, cold=True)
+            warm, cold = cuda_time(kernel), cuda_time(kernel, cold=True)
             result["edges"][key] = {"rounds": rounds, "ms": warm, "cold_ms": cold}
             print(f"[{label}] (12d) id kernel {key} ({'wide' if tab.wide else 'narrow'}): packed "
                   f"prefix of {read} entries equal to the twin (max_abs_err 0, tolerance 0), one "
@@ -2017,9 +1993,9 @@ def id_vs_plain(device: str, zipf: list[str], unique: list[str], label: str, cha
         nbytes = (in_bytes + probed_slot_bytes(tab, pairs, with_minsuper=False)
                   + read * want.element_size() + scan_bytes)
         # in turns, inside this call; warm, the pair table stays in L2
-        k1 = kernel_ms(kernel)
+        k1 = cuda_time(kernel)
         p1 = time_ms(twin, 2)
-        k2 = kernel_ms(kernel)
+        k2 = cuda_time(kernel)
         cold = cuda_time(kernel, cold=True)
         row = {"ms": (k1 + k2) / 2, "plain_ms": p1, "cold_ms": cold, "rounds": rounds,
                **bound_entry(nbytes)}
@@ -2082,8 +2058,6 @@ def main() -> int:
     device = "cuda"
 
     # 1. device
-    from hutoken_tpu_torch.profile_gather import card_label
-
     label = card_label()
     print(label)
     from hutoken_tpu_torch.native import load_native

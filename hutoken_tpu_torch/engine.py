@@ -102,26 +102,15 @@ ROW_BLOCKS = {32: 16384, 128: 1024}
 # documents are processed in byte-bounded groups; the producer thread
 # splits group g+1 while the main thread resolves/launches group g and
 # the drainer downloads finished blocks — smaller groups = finer overlap
-try:
-    GROUP_BYTES = int(os.environ.get("HUTOKEN_TPU_GROUP_BYTES", 2 << 20))
-except ValueError:
-    GROUP_BYTES = 2 << 20
-if GROUP_BYTES < (64 << 10):  # degenerate groups kill pipeline overlap
-    GROUP_BYTES = 64 << 10
+GROUP_BYTES = 2 << 20
 
 # the raw path (ops/split.py) is selected for big cache-cold batches,
 # where the word pipeline's per-byte host stages (split, resolve, pack,
 # extract, assemble) bound throughput while the device idles.  The probe
 # measures the corpus's intrinsic unique-byte ratio on a small sample;
 # repetitive corpora stay on the cache-driven pipeline.
-try:
-    RAW_MIN_BYTES = int(os.environ.get("HUTOKEN_TPU_RAW_MIN", 768 << 10))
-except ValueError:
-    RAW_MIN_BYTES = 768 << 10
-try:
-    RAW_THRESH = float(os.environ.get("HUTOKEN_TPU_RAW_THRESH", 0.5))
-except ValueError:
-    RAW_THRESH = 0.5
+RAW_MIN_BYTES = 768 << 10
+RAW_THRESH = 0.5
 
 
 class TorchTokenizer:
@@ -1585,7 +1574,7 @@ class TorchTokenizer:
 
     def decode_batch_device(self, token_lists: list[list[int]]) -> list[str]:
         """Device decode via the fused one-launch gather kernel
-        (ops/decode.py decode_gather_blob): the whole token stream
+        (ops/decode.py decode_tokens_blob_tot): the whole token stream
         decodes in one dispatch per (pow2-padded) chunk — no per-length
         buckets, no scatter chains.  Serves any config whose decode
         table is per-token context-free (byte-encoder fast configs AND

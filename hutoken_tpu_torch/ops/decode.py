@@ -47,17 +47,6 @@ def _gather_bytes(dec_flat: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return dec_flat[idx.to(torch.int64)]
 
 
-def decode_gather_blob(dec_flat: torch.Tensor, v_delta: torch.Tensor,
-                       offs: torch.Tensor, out_size: int) -> torch.Tensor:
-    """Decode a whole token stream from host-made v-deltas: ``v_delta``
-    int32 [N] (``v[j] - v[j-1]``, ``v[0]`` for j = 0) and ``offs`` int32
-    [N] (each token's first output byte, ascending; pad tokens carry offs
-    = total and delta 0).  Returns uint8 [out_size]; bytes past the real
-    total are padding for the caller to slice off."""
-    keep = torch.ones(offs.shape, dtype=torch.bool, device=offs.device)
-    return _gather_bytes(dec_flat, _scatter_v(offs, v_delta, keep, out_size))
-
-
 def _token_prep(counts: torch.Tensor, toks: torch.Tensor, n_valid: int, ld: int):
     """Per-token lengths, their inclusive int32 cumsum, the v-deltas and
     the valid mask of a padded token stream."""
@@ -84,9 +73,9 @@ def decode_tokens_blob(dec_flat: torch.Tensor, counts: torch.Tensor,
     and the v-deltas run on the device too, so the host uploads only the
     token stream.  ``counts`` int32 [V] decoded bytes per id; ``toks``
     [N] int32 ids, or uint16 ids as int16 bit patterns, with ``n_valid``
-    real entries; ``ld`` the table's row stride.  Same output contract
-    as :func:`decode_gather_blob`.  Every call adds one to
-    ``decode_tokens_blob.calls``."""
+    real entries; ``ld`` the table's row stride.  Returns uint8
+    [out_size]; bytes past the real total are padding for the caller to
+    slice off.  Every call adds one to ``decode_tokens_blob.calls``."""
     decode_tokens_blob.calls += 1
     _cum, offs, delta, valid = _token_prep(counts, toks, n_valid, ld)
     return _gather_bytes(dec_flat, _scatter_v(offs, delta, valid, out_size))

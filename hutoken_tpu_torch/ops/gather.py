@@ -6,7 +6,8 @@ scripts (``scripts/profile_pallas_gather.py`` ``k_take`` / ``k_taa``,
 ``scripts/profile_pallas_gather2.py`` ``k_gather2``,
 ``scripts/profile_gather3.py`` ``kernel`` / ``kernel0``); the source file
 says how each is laid out for Hopper.  ``python -m
-hutoken_tpu_torch.profile_gather`` runs them at the scripts' shapes.
+hutoken_tpu_torch.scripts.profile_gather`` runs them at the scripts'
+shapes.
 
 Each entry point launches its kernel for CUDA tensors and runs its twin
 only for CPU tensors: there is no fallback from one to the other.  The

@@ -60,12 +60,18 @@ ID_MASK = (1 << ID_BITS) - 1
 NO_PAIR = (ID_MASK << ID_BITS) | ID_MASK
 INF = 0x7FFFFFFF
 MIN_MERGE_COUNT = 2  # bbpe stops at a best count <= 1 (src/bbpe.c:83-84)
+# the bbpe trainer on a mesh of several shards sums dense K^2 histograms
+# up to this vocabulary size, and takes the candidate tables past it
+DENSE_MAX_VOCAB = 4096
 # the string trainer: the most compositions (splits of the winning
 # spelling into two live spellings) merged on the device in one step,
 # the query width of ``probe_pairs``, and the deep candidate table's k
 MAXC = 64
 PROBE_P = 64
 DEEP_K = 32768
+# the least top-k a shard sends to the string trainer's candidate table
+# (the Fagin bound's depth, ``_distributed_train_string``)
+STRING_MIN_K_TOP = 8192
 # ``probe_pairs`` sends the stream positions that match no query to
 # slots of their own past the P query slots, spread over this many, so
 # that no slot takes more than n / MISS_SLOTS atomic adds
@@ -693,8 +699,7 @@ def _use_candidates(K: int, n_dev: int, n_total: int = 0) -> bool:
         return True
     if os.environ.get("HUTOKEN_TPU_TRAIN_FORCE_CANDIDATES") == "1":
         return True
-    dense_kmax = int(os.environ.get("HUTOKEN_TPU_TRAIN_DENSE_KMAX", "4096"))
-    return K > dense_kmax
+    return K > DENSE_MAX_VOCAB
 
 
 def distributed_bbpe_train(
@@ -1030,11 +1035,7 @@ def _distributed_train_string(
     # on MB-scale corpora and certification fails chronically past ~100
     # merges.  A deeper candidate table pushes B into the count tail;
     # the extra candidate rows only cost download + host-dict size.
-    kv = os.environ.get("HUTOKEN_TPU_STRING_KTOP", "8192")
-    try:
-        k_top = max(int(kv), k_top)
-    except ValueError:
-        pass
+    k_top = max(STRING_MIN_K_TOP, k_top)
     string_step, merge_multi_step, probe_step = make_string_step(
         mesh, k_top=k_top
     )
@@ -1546,9 +1547,6 @@ def _distributed_train_string(
                                 can_query = True
                                 break
                 if not safe:
-                    if os.environ.get("HUTOKEN_TPU_STRING_DEBUG") == "1":
-                        print(f"[sdbg] uncert win_c={win_c} B={B} "
-                              f"guard={_nlen()*B} query={can_query}")
                     divergent = (
                         ("query", (groups, ps, B))
                         if can_query

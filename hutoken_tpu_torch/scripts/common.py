@@ -1,5 +1,7 @@
 """What the port's drivers share: the ``--device`` switch, the card's
-label, the committed fixture configurations and a device-side timer.
+label, the committed fixture configurations and the device-side timer
+that every kernel time of the drivers, the smoke and the tools rests on
+(:func:`cuda_time`).
 
 A driver runs on the card unless it is given ``--device cpu``.  Asked
 for the card without one, it exits non-zero: it never falls back to
@@ -9,7 +11,9 @@ the CPU, and a CPU run prints no time under a device metric's name.
 from __future__ import annotations
 
 import argparse
+import functools
 import os
+import subprocess
 import sys
 import time
 
@@ -18,9 +22,12 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO = os.path.dirname(_PKG)
 FIXTURES = os.path.join(REPO, "tests", "fixtures")
-# the committed configurations (bench.py:17-27); ``unique`` runs the
-# ``small`` vocabulary on the high-entropy corpus
+# the committed configurations (bench.py:17-27)
 CONFIGS = ("small", "big-vocab", "big-merges")
+REPS = 20  # timed calls of one cuda_time
+L2_FLUSH_BYTES = 128 << 20  # read between cold calls: over twice the H100's 50 MB L2
+LEAD_CYCLES = 1 << 25  # first length of the sleep that leads each timed loop
+LEAD_DOUBLINGS = 4  # times the sleep may double before the timer gives up
 
 
 def add_device_arg(parser: argparse.ArgumentParser) -> None:
@@ -41,8 +48,6 @@ def open_device(device: str) -> str:
     if not torch.cuda.is_available():
         sys.exit(f"{os.path.basename(sys.argv[0])}: no CUDA device "
                  "(torch.cuda.is_available() is False); pass --device cpu")
-    from ..profile_gather import card_label
-
     label = card_label()
     print(label, flush=True)
     return label
@@ -63,13 +68,70 @@ def wall(fn, device):
     return out, time.perf_counter() - t0
 
 
-def kernel_ms(fn) -> float:
-    """Device ms per call of ``fn`` by CUDA events with a sleep queued
-    ahead, so that the host's enqueue never paces the loop
-    (``profile_gather.cuda_time``)."""
-    from ..profile_gather import cuda_time
+def card_label() -> str:
+    """The card's ``nvidia-smi`` name and power limit."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout
+    return out.strip().splitlines()[0]
 
-    return cuda_time(fn)
+
+@functools.lru_cache(maxsize=None)
+def _l2_flush():
+    """A call that reads ``L2_FLUSH_BYTES`` on the current device, which
+    evicts whatever an earlier call left in its L2 and leaves it holding
+    clean lines (a write would leave dirty ones, whose write-back would
+    land in the next timed call)."""
+    buf = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+    return buf.sum
+
+
+def cuda_time(fn, cold: bool = False) -> float:
+    """Device ms per call of ``fn`` over ``REPS`` back-to-back calls, by
+    CUDA events, after one warm call.  With ``cold``, L2 is flushed
+    before each call and each call is timed between its own two events,
+    the flush outside them: the time of a caller who finds the cache
+    cold.
+
+    A call at small shapes runs for a few microseconds on the card, less
+    than the host takes to enqueue it, so events around a plain loop
+    would time the host.  A sleep kernel queued first holds the stream
+    while the host enqueues every call; the sleep is doubled until it
+    outlasts the enqueue, and the timer raises if it never does rather
+    than return a time the host paced."""
+    flush = _l2_flush() if cold else None
+    fn()
+    torch.cuda.synchronize()
+    for doubling in range(LEAD_DOUBLINGS + 1):
+        lead, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        marks = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                 for _ in range(REPS if cold else 0)]
+        lead.record()
+        torch.cuda._sleep(LEAD_CYCLES << doubling)
+        start.record()
+        t0 = time.perf_counter()
+        if cold:
+            for before, after in marks:
+                flush()
+                before.record()
+                fn()
+                after.record()
+        else:
+            for _ in range(REPS):
+                fn()
+        end.record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        lead_ms = lead.elapsed_time(start)
+        if lead_ms > enqueue_ms:
+            if cold:
+                return sum(before.elapsed_time(after) for before, after in marks) / REPS
+            return start.elapsed_time(end) / REPS
+    raise RuntimeError(
+        f"cuda_time: a {lead_ms:.3f} ms lead did not outlast the host's "
+        f"{enqueue_ms:.3f} ms enqueue of {REPS} calls; the loop was host-paced"
+    )
 
 
 def launch_counts() -> dict:

@@ -4,7 +4,7 @@ scripts (``scripts/profile_pallas_gather.py``,
 with their loops, shapes and checks, run through the hand-written
 kernels of ``ops/gather.py`` and their plain PyTorch twins.
 
-    python -m hutoken_tpu_torch.profile_gather
+    python -m hutoken_tpu_torch.scripts.profile_gather
 
 For each shape, and for the edge shapes of :func:`edge_cases` (ragged
 counts, views at an offset, tables on either side of ``gather_cols``'
@@ -29,9 +29,7 @@ nothing.
 from __future__ import annotations
 
 import argparse
-import functools
 import math
-import subprocess
 import sys
 import time
 from dataclasses import dataclass, field
@@ -39,14 +37,11 @@ from typing import Callable, Optional
 
 import torch
 
-from .ops import gather as G
+from ..ops import gather as G
+from .common import card_label, cuda_time
 
-REPS = 20  # timed calls per kernel and shape
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
-L2_FLUSH_BYTES = 128 << 20  # read between cold calls: over twice the H100's 50 MB L2
 SEED = 0
-LEAD_CYCLES = 1 << 25  # first length of the sleep that leads each timed loop
-LEAD_DOUBLINGS = 4  # times the sleep may double before the timer gives up
 
 
 @dataclass(frozen=True)
@@ -242,63 +237,6 @@ def sector_bytes(probe: str, args: tuple) -> int:
     return 32 * int(sectors.numel()) + 8 * idx.numel()
 
 
-@functools.lru_cache(maxsize=None)
-def _l2_flush() -> Callable:
-    """A call that reads ``L2_FLUSH_BYTES`` on the current device, which
-    evicts whatever an earlier call left in its L2 and leaves it holding
-    clean lines (a write would leave dirty ones, whose write-back would
-    land in the next timed call)."""
-    buf = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
-    return buf.sum
-
-
-def cuda_time(fn, cold: bool = False) -> float:
-    """Device ms per call of ``fn`` over ``REPS`` back-to-back calls, by
-    CUDA events, after one warm call.  With ``cold``, L2 is flushed
-    before each call and each call is timed between its own two events,
-    the flush outside them: the time of a caller who finds the cache
-    cold.
-
-    A call at the scripts' smaller shapes runs for a few microseconds on
-    the card, less than the host takes to enqueue it, so events around a
-    plain loop would time the host.  A sleep kernel queued first holds
-    the stream while the host enqueues every call; the sleep is doubled
-    until it outlasts the enqueue, and the timer raises if it never does
-    rather than return a time the host paced."""
-    flush = _l2_flush() if cold else None
-    fn()
-    torch.cuda.synchronize()
-    for doubling in range(LEAD_DOUBLINGS + 1):
-        lead, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-        marks = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-                 for _ in range(REPS if cold else 0)]
-        lead.record()
-        torch.cuda._sleep(LEAD_CYCLES << doubling)
-        start.record()
-        t0 = time.perf_counter()
-        if cold:
-            for before, after in marks:
-                flush()
-                before.record()
-                fn()
-                after.record()
-        else:
-            for _ in range(REPS):
-                fn()
-        end.record()
-        enqueue_ms = (time.perf_counter() - t0) * 1e3
-        torch.cuda.synchronize()
-        lead_ms = lead.elapsed_time(start)
-        if lead_ms > enqueue_ms:
-            if cold:
-                return sum(before.elapsed_time(after) for before, after in marks) / REPS
-            return start.elapsed_time(end) / REPS
-    raise RuntimeError(
-        f"cuda_time: a {lead_ms:.3f} ms lead did not outlast the host's "
-        f"{enqueue_ms:.3f} ms enqueue of {REPS} calls; the loop was host-paced"
-    )
-
-
 def run_case(case: Case, device, gen: torch.Generator,
              timer: Optional[Callable] = None) -> dict:
     """Check one case and (with a timer) time kernel and twin, and the
@@ -342,7 +280,7 @@ def run(device, cases: Optional[list[Case]] = None, timer: Optional[Callable] = 
         label: str = "", out=sys.stdout) -> list[dict]:
     """Every case (by default the scripts' and the edge shapes) on
     ``device``; one line each.  Times and rates only with a timer (on the
-    card, :func:`cuda_time`); a CPU run prints "not measured"."""
+    card, ``common.cuda_time``); a CPU run prints "not measured"."""
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     rows = []
@@ -380,14 +318,6 @@ def empty_launch_ms(timer: Callable = None) -> float:
     """The time of an empty launch (``torch.cuda._sleep(0)``) by the same
     timer: the floor under every time of the probe."""
     return (timer or cuda_time)(lambda: torch.cuda._sleep(0))
-
-
-def card_label() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout
-    return out.strip().splitlines()[0]
 
 
 def main(argv: Optional[list[str]] = None) -> int:

@@ -17,7 +17,7 @@ the wide table):
    packs them, through ``ops/fused_merge.py::merge_words_from_bytes_fused``
    at widths 8, 16 and 32: the kernel equal to ``compact_output`` of its
    plain twin on the prefix the host reads, its time by CUDA events
-   behind a sleep kernel (``profile_gather.cuda_time``);
+   behind a sleep kernel (``common.cuda_time``);
 2. **long words**: ``--eager-blocks`` blocks of ``--eager-words``
    (1,024) x 128 bytes, the engine's block of words of 33-128 bytes,
    through the id merge kernel (``ops/id_merge.py::id_merge_bytes``) and
@@ -53,7 +53,7 @@ own ``_build/``.  On three blocks (``--char-words`` x 32 char-mode ids,
 and ``--eager-words`` x 128 compound bytes on the narrow and on the wide
 table) both kernels are held equal to the twin on the prefix the host
 reads, then timed in the order other, this, this, other, back to back
-and under a cold L2 (``profile_gather.cuda_time``), ``--rounds`` times;
+and under a cold L2 (``common.cuda_time``), ``--rounds`` times;
 each line gives both means, other / this, each side's repeat ratio (the
 timer's own spread) and ms a round of the twin's rounds.  First it
 prints what ``ptxas -v`` reports (registers, spills) for every
@@ -77,7 +77,7 @@ import numpy as np
 import torch
 
 from ..corpora import build_corpus
-from .common import add_device_arg, kernel_ms, load_ctx, open_device, sync
+from .common import add_device_arg, cuda_time, load_ctx, open_device, sync
 
 WIDTHS = (8, 16, 32)
 SAMPLE = 32  # rows of each output held to the oracle
@@ -234,7 +234,7 @@ def fused_rows(ctx, tab, u16: bool, docs, n_words: int, device: str, label: str,
         if not torch.equal(out[:n].cpu(), want[:n].cpu()):
             raise RuntimeError(f"{name} width {width}: the fused kernel differs from its twin")
         check_rows(ctx, words, unpack(out, W)[1], f"{name} fused width {width}")
-        ms = (f"{kernel_ms(lambda: merge_words_from_bytes_fused(tab, raw_d, lens_d, u16)):.4f} ms"
+        ms = (f"{cuda_time(lambda: merge_words_from_bytes_fused(tab, raw_d, lens_d, u16)):.4f} ms"
               if device == "cuda" else "not measured")
         print(f"[{label}] fused merge {name} {W} x {width}: {int(lens.sum())} B, equal to the twin "
               f"and the oracle; kernel {ms}", flush=True)
@@ -292,7 +292,7 @@ def twin_and_kernel(ctx, words, twin, kernel, W: int, seeds: int, device: str,
         twin_timing = (f"{ms:.3f} ms a block (device {busy * 1e3:.3f} ms), {ops / rounds:.1f} device ops "
                        f"a round ({ops} in all), {syncs} host syncs")
         calls = merge_fixed_point.calls
-        kernel_timing = (f"kernel {kernel_ms(kernel):.4f} ms a block, {launched} launch, "
+        kernel_timing = (f"kernel {cuda_time(kernel):.4f} ms a block, {launched} launch, "
                          f"{count_syncs(kernel)} host syncs, eager calls {merge_fixed_point.calls - calls}")
     else:
         twin_timing = "time, device ops and host syncs not measured"
@@ -444,7 +444,6 @@ def ab_other(docs, args, label: str, directory: str) -> list[dict]:
     :func:`ab_blocks`; returns a row a block."""
     from ..ops import id_merge as IM
     from ..ops.merge import merge_words_from_bytes_packed, merge_words_packed
-    from ..profile_gather import cuda_time
 
     other = load_id_merge(args.other)
     cuda = args.device == "cuda"

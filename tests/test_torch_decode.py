@@ -115,30 +115,6 @@ def test_decode_tokens_blob_tot_matches_jax(dtype):
     assert np.array_equal(aux.numpy()[1 : 1 + len(bounds)], cum[bounds])
 
 
-def test_decode_gather_blob_matches_jax():
-    """Host-made v-deltas: tokens sharing a start (zero-length spellings)
-    telescope, pad tokens carry offs = total and drop."""
-    rng = np.random.default_rng(3)
-    V, ld = 500, 6
-    dec, counts = _table(rng, V, ld)
-    ids = rng.integers(0, V, 400).astype(np.int64)
-    ids[::7] = np.flatnonzero(counts == 0)[0]  # zero-length spellings
-    lens = counts[ids].astype(np.int64)
-    offs = np.concatenate(([0], np.cumsum(lens)[:-1]))
-    total = int(lens.sum())
-    v = ids * ld - offs
-    delta = np.diff(np.concatenate(([0], v)))
-    n_pad = 50
-    offs_p = np.concatenate((offs, np.full(n_pad, total))).astype(np.int32)
-    delta_p = np.concatenate((delta, np.zeros(n_pad))).astype(np.int32)
-    out_size = 1 << total.bit_length()
-    want = np.asarray(JD.decode_gather_blob(dec.reshape(-1), delta_p, offs_p, out_size))
-    got = D.decode_gather_blob(torch.from_numpy(dec.reshape(-1)), torch.from_numpy(delta_p),
-                               torch.from_numpy(offs_p), out_size).numpy()
-    assert np.array_equal(got, want)
-    assert got[:total].tobytes() == b"".join(dec[i, : counts[i]].tobytes() for i in ids)
-
-
 @pytest.mark.parametrize("offset", [0, 100, 250, 1000, -5])
 def test_write_chunk_matches_jax_and_clamps(offset):
     rng = np.random.default_rng(offset + 10)

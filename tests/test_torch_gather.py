@@ -1,8 +1,9 @@
-"""The gather kernels (hutoken_tpu_torch/ops/gather.py) and the probe
-that runs them (hutoken_tpu_torch/profile_gather.py): each plain PyTorch
-twin against the Pallas kernel it replaces, built as its script builds it
-but in interpret mode, and against the script's own numpy oracle; the
-CUDA kernels against their twins on the card.  Values are integers: every
+"""The gather kernels (hutoken_tpu_torch/ops/gather.py), the probe that
+runs them (hutoken_tpu_torch/scripts/profile_gather.py) and its timer
+(``scripts/common.py::cuda_time``): each plain PyTorch twin against the
+Pallas kernel it replaces, built as its script builds it but in
+interpret mode, and against the script's own numpy oracle; the CUDA
+kernels against their twins on the card.  Values are integers: every
 comparison is exact.
 
 The kernel bodies are closures inside each script's ``main()``, so they
@@ -23,9 +24,10 @@ import jax.numpy as jnp  # noqa: E402
 from jax.experimental import pallas as pl  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
-from hutoken_tpu_torch import profile_gather as PG  # noqa: E402
 from hutoken_tpu_torch.ops import build as B  # noqa: E402
 from hutoken_tpu_torch.ops import gather as G  # noqa: E402
+from hutoken_tpu_torch.scripts import common as SC  # noqa: E402
+from hutoken_tpu_torch.scripts import profile_gather as PG  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -698,31 +700,31 @@ class _FakeCuda:
 ])
 def test_cuda_time_times_the_device_or_raises(monkeypatch, host_ms, sleeps):
     first_lead_ms = 2.0
-    fake = _FakeCuda(first_lead_ms / PG.LEAD_CYCLES, host_ms, dev_ms_per_call=0.003)
+    fake = _FakeCuda(first_lead_ms / SC.LEAD_CYCLES, host_ms, dev_ms_per_call=0.003)
     for name in ("Event", "synchronize", "_sleep"):
         monkeypatch.setattr(torch.cuda, name, getattr(fake, name))
-    monkeypatch.setattr(PG.time, "perf_counter", fake.perf_counter)
+    monkeypatch.setattr(SC.time, "perf_counter", fake.perf_counter)
     # the enqueue of REPS calls against leads of 2, 4, 8, ... ms
     if sleeps is None:
         with pytest.raises(RuntimeError, match="host-paced"):
-            PG.cuda_time(fake.call)
-        assert len(fake.sleeps) == PG.LEAD_DOUBLINGS + 1
+            SC.cuda_time(fake.call)
+        assert len(fake.sleeps) == SC.LEAD_DOUBLINGS + 1
     else:
-        assert PG.cuda_time(fake.call) == pytest.approx(0.003)
-        assert fake.sleeps == [PG.LEAD_CYCLES << k for k in range(sleeps)]
+        assert SC.cuda_time(fake.call) == pytest.approx(0.003)
+        assert fake.sleeps == [SC.LEAD_CYCLES << k for k in range(sleeps)]
 
 
 def test_cold_cuda_time_flushes_before_each_call_and_times_only_the_call(monkeypatch):
     """Under ``cold`` every call follows an L2 flush, and the flush's
     device time stays out of the call's time."""
-    fake = _FakeCuda(2.0 / PG.LEAD_CYCLES, 0.01, dev_ms_per_call=0.003)
+    fake = _FakeCuda(2.0 / SC.LEAD_CYCLES, 0.01, dev_ms_per_call=0.003)
     for name in ("Event", "synchronize", "_sleep"):
         monkeypatch.setattr(torch.cuda, name, getattr(fake, name))
-    monkeypatch.setattr(PG.time, "perf_counter", fake.perf_counter)
-    monkeypatch.setattr(PG, "_l2_flush", lambda: fake.flush)
-    assert PG.cuda_time(fake.call, cold=True) == pytest.approx(0.003)
-    assert fake.flushes == PG.REPS
-    assert PG.cuda_time(fake.call) == pytest.approx(0.003) and fake.flushes == PG.REPS
+    monkeypatch.setattr(SC.time, "perf_counter", fake.perf_counter)
+    monkeypatch.setattr(SC, "_l2_flush", lambda: fake.flush)
+    assert SC.cuda_time(fake.call, cold=True) == pytest.approx(0.003)
+    assert fake.flushes == SC.REPS
+    assert SC.cuda_time(fake.call) == pytest.approx(0.003) and fake.flushes == SC.REPS
 
 
 def test_probe_main_needs_cuda(capsys):

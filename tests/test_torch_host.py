@@ -4,7 +4,8 @@ encoder tables, pre-tokenizer and oracle, the native engine binding,
 the trainers, the Hugging Face import and morphology, and the engine's
 host layer.  Plus the rule that makes the copies necessary: no module
 of the port, and neither ``chip_smoke.py`` nor the tools of ``tools/``,
-imports ``jax`` or ``hutoken_tpu``."""
+imports ``jax`` or ``hutoken_tpu``; and the environment variables they
+read, eight and no more."""
 
 import ast
 import dataclasses
@@ -120,6 +121,59 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
         if n.split(".")[0] in ("jax", "jaxlib", "hutoken_tpu")
     ]
     assert not banned, banned
+
+
+# the HUTOKEN_* variables the port and the smoke read: the facade's
+# documented switches, the native library's, and the seams that the
+# smoke and the subprocess tests set
+ENV_VARS = {
+    "HUTOKEN_TPU_BACKEND", "HUTOKEN_TPU_DECODE", "HUTOKEN_TPU_NO_NATIVE", "HUTOKEN_TPU_RAW",
+    "HUTOKEN_TPU_RAW_C", "HUTOKEN_TPU_STRING_SCAN", "HUTOKEN_TPU_TRAIN_FORCE_CANDIDATES",
+    "HUTOKEN_TPU_TRAIN_SELFCHECK",
+}
+
+
+def _environ_reads(path):
+    """The HUTOKEN_* names a module reads from the environment:
+    ``environ.get(name)``, ``getenv(name)``, ``environ[name]`` and
+    ``name in environ``."""
+
+    def is_environ(node):
+        return (isinstance(node, ast.Attribute) and node.attr == "environ"
+                or isinstance(node, ast.Name) and node.id == "environ")
+
+    tree = ast.parse(open(path, encoding="utf-8").read(), filename=path)
+    for node in ast.walk(tree):
+        key = None
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute) and node.args:
+            if node.func.attr == "getenv" or node.func.attr == "get" and is_environ(node.func.value):
+                key = node.args[0]
+        elif isinstance(node, ast.Subscript) and isinstance(node.ctx, ast.Load) and is_environ(node.value):
+            key = node.slice
+        elif (isinstance(node, ast.Compare) and isinstance(node.ops[0], (ast.In, ast.NotIn))
+              and is_environ(node.comparators[0])):
+            key = node.left
+        if isinstance(key, ast.Constant) and str(key.value).startswith("HUTOKEN_"):
+            yield key.value
+
+
+def _readme_env_vars():
+    """The variables of the README's "Environment variables" table."""
+    text = open(os.path.join(REPO, "README.md"), encoding="utf-8").read()
+    section = text.split("### Environment variables", 1)[1].split("\n#", 1)[0]
+    return {line.split("`")[1] for line in section.splitlines() if line.startswith("| `HUTOKEN_")}
+
+
+@pytest.mark.parametrize("where", ["code", "README"])
+def test_the_port_reads_eight_environment_variables(where):
+    """Every environment variable is a configuration to test and measure,
+    so the set does not grow unseen: the port's modules and the smoke
+    read these eight, and the README lists the same eight."""
+    if where == "code":
+        got = {name for path in _port_sources() for name in _environ_reads(path)}
+    else:
+        got = _readme_env_vars()
+    assert got == ENV_VARS
 
 
 # ----------------------------------------------------- formats, context
@@ -546,3 +600,23 @@ def test_smoke_inputs_are_copies():
     assert chip_smoke.fixture_paths("big-merges") == (
         *ft.write_big_vocab_fixture(), ft.write_big_merges_fixture()
     )
+
+
+def test_smoke_raw_chunk_takes_whole_documents_up_to_a_chunk(monkeypatch):
+    """``chip_smoke.raw_chunk``, the chunk phase 3 times ``seg_merge``
+    on: the corpus's first documents, whole, while their bytes fit
+    ``RAW_CHUNK`` (the engine's raw chunk, ``HUTOKEN_TPU_RAW_C``'s
+    default), and each document's end."""
+    import chip_smoke
+    from hutoken_tpu_torch import corpora as C
+
+    assert chip_smoke.RAW_CHUNK == 1 << 22
+    docs = C.build_unique_corpus(0.3)
+    sizes = [len(d.encode()) for d in docs]
+    monkeypatch.setattr(chip_smoke, "RAW_CHUNK", sum(sizes[:5]) + sizes[5] - 1)
+    chunk, ends = chip_smoke.raw_chunk(docs)
+    assert chunk.dtype == np.uint8 and ends.tolist() == np.cumsum(sizes[:5]).tolist()
+    assert chunk.tobytes() == "".join(docs[:5]).encode()
+    monkeypatch.setattr(chip_smoke, "RAW_CHUNK", sizes[0] - 1)
+    chunk, ends = chip_smoke.raw_chunk(docs)
+    assert chunk.size == 0 and ends.size == 0

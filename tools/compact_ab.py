@@ -17,10 +17,10 @@ TPU scatters are slow.  On the card three forms compute the same thing:
 
 Each is held equal to ``_compact`` on every input, then each round
 times them in the order sort, argsort, scatter, scatter, argsort, sort
-with ``profile_gather.cuda_time``.  Inputs: a shard of ``N`` = 2^22 ids
-(the 4 MB training corpus has 4,000,000) as the start of training
-leaves one (2 % holes spread through it) and as its end does (a 40 %
-pad tail, 0.5 % holes in the rest).
+with ``scripts/common.py::cuda_time``.  Inputs: a shard of ``N`` =
+2^22 ids (the 4 MB training corpus has 4,000,000) as the start of
+training leaves one (2 % holes spread through it) and as its end does
+(a 40 % pad tail, 0.5 % holes in the rest).
 """
 
 from __future__ import annotations
@@ -33,8 +33,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from hutoken_tpu_torch import profile_gather as PG  # noqa: E402
 from hutoken_tpu_torch.parallel.train import _compact  # noqa: E402
+from hutoken_tpu_torch.scripts.common import card_label, cuda_time  # noqa: E402
 
 N = 1 << 22
 
@@ -71,7 +71,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("compact_ab: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
-    label = PG.card_label()
+    label = card_label()
     print(label)
     for what, holes, live in (("start", 0.02, 1.0), ("end", 0.005, 0.6)):
         new = shard(N, holes, live, seed=len(what))
@@ -83,7 +83,7 @@ def main(argv=None) -> int:
         for r in range(args.rounds):
             ms = {name: [] for name in FORMS}
             for name in order:
-                ms[name].append(PG.cuda_time(lambda: FORMS[name](new)))
+                ms[name].append(cuda_time(lambda: FORMS[name](new)))
             print(f"[{label}] compact {N} ids at the {what} of training ({holes:.1%} holes, "
                   f"{1 - live:.0%} pad tail), round {r}: "
                   + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.4f} ms" for k, v in ms.items()))

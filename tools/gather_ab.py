@@ -12,9 +12,9 @@ through their entry points (``gather_1d``, ``gather_two_level``,
 every script and edge shape of this checkout's ``profile_gather`` whose
 probe is asked for, both outputs are held equal to the twin; then each
 round times the two in the order other, this, this, other, back to back
-and under a cold L2 (``profile_gather.cuda_time``), and prints other /
-this beside the ratio of the round's two readings of each side, the
-spread of the timer itself.
+and under a cold L2 (``scripts/common.py::cuda_time``), and prints
+other / this beside the ratio of the round's two readings of each side,
+the spread of the timer itself.
 
 ``--crossover`` times ``gather_cols``' two routes on this checkout at
 tables around ``SLAB_MAX_ROWS`` (slab, L2, L2, slab in each round),
@@ -35,8 +35,9 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from hutoken_tpu_torch import profile_gather as PG  # noqa: E402
 from hutoken_tpu_torch.ops import gather as G  # noqa: E402
+from hutoken_tpu_torch.scripts import profile_gather as PG  # noqa: E402
+from hutoken_tpu_torch.scripts.common import card_label, cuda_time  # noqa: E402
 
 CROSSOVER_ROWS = (4096, 4608, 5120, 5632, 6144, 6656, 7168)  # gather_cols tables, N = 2^20
 
@@ -160,7 +161,7 @@ def main(argv: Optional[list[str]] = None) -> int:
     if not torch.cuda.is_available():
         print("gather_ab: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
-    label = PG.card_label()
+    label = card_label()
     print(label)
     if opts.other:
         other = load_gather(opts.other)
@@ -168,9 +169,9 @@ def main(argv: Optional[list[str]] = None) -> int:
         G.build()
         probes = opts.probes.split(",")
         cases = [c for c in PG.script_cases() + PG.edge_cases() if c.probe in probes]
-        compare(other, cases, PG.cuda_time, opts.rounds, label=label)
+        compare(other, cases, cuda_time, opts.rounds, label=label)
     if opts.crossover:
-        crossover(PG.cuda_time, rounds=opts.rounds, label=label)
+        crossover(cuda_time, rounds=opts.rounds, label=label)
     return 0
 
 

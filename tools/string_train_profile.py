@@ -48,7 +48,7 @@ def main() -> int:
     import chip_smoke as CS
     from hutoken_tpu_torch.parallel import data_mesh
     from hutoken_tpu_torch.parallel import train as PT
-    from hutoken_tpu_torch.profile_gather import card_label
+    from hutoken_tpu_torch.scripts.common import card_label
     from hutoken_tpu_torch.train import common
 
     print(card_label(), flush=True)
