@@ -89,9 +89,10 @@ def initialize(model_or_path: str, *args: Any, **kwargs: Any):
     """
     global _ctx, _backend, _device
     initialize_logging()
-    from .utils.mem import tune_allocator
+    from .utils.mem import cap_arenas, tune_allocator
 
     tune_allocator()
+    cap_arenas()
     _backend = kwargs.pop("backend", os.environ.get("HUTOKEN_TPU_BACKEND", "auto"))
     _device = kwargs.pop("device", "cuda")
 

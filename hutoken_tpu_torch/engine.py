@@ -89,7 +89,7 @@ from .pretokenize import encode_remap, split_words, split_words_pattern
 from .setup_record import SETUP
 from .spans import RECORD
 from .tables import build_encoder_tables, device_tables, max_token_id
-from .utils.mem import tune_allocator
+from .utils.mem import cap_arenas, tune_allocator
 
 # words of up to 32 bytes take the fused kernel, 33-128 bytes the id
 # merge kernel, longer ones the exact host path
@@ -135,6 +135,7 @@ class TorchTokenizer:
     def __init__(self, ctx: TokenizerContext, *, device: torch.device | str | None = None,
                  prefer_device_decode: bool = False, mesh: Optional[DataMesh] = None):
         tune_allocator()
+        cap_arenas()
         if mesh is not None:
             if not isinstance(mesh, DataMesh):
                 raise TypeError(f"mesh must be a DataMesh (data_mesh()), not {type(mesh).__name__}")

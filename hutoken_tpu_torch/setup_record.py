@@ -118,6 +118,43 @@ def heap_free_bytes() -> int | None:
     return None if fn is None else int(fn().fordblks)
 
 
+@functools.cache
+def _malloc_info():
+    try:
+        libc = ctypes.CDLL(None)
+        fns = libc.malloc_info, libc.open_memstream, libc.fclose, libc.free
+    except (OSError, AttributeError):  # not glibc
+        return None
+    info, memstream, fclose, free = fns
+    info.restype, info.argtypes = ctypes.c_int, [ctypes.c_int, ctypes.c_void_p]
+    memstream.restype = ctypes.c_void_p
+    memstream.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_size_t)]
+    fclose.restype, fclose.argtypes = ctypes.c_int, [ctypes.c_void_p]
+    free.restype, free.argtypes = None, [ctypes.c_void_p]
+    return fns
+
+
+def heap_arenas() -> int | None:
+    """The number of glibc's malloc arenas: the ``<heap nr=...>``
+    entries of ``malloc_info``'s report, which it writes to a stream in
+    memory (``open_memstream``), so that no file is made.  None outside
+    glibc or where the report fails."""
+    fns = _malloc_info()
+    if fns is None:
+        return None
+    info, memstream, fclose, free = fns
+    buf, size = ctypes.c_void_p(), ctypes.c_size_t()
+    fp = memstream(ctypes.byref(buf), ctypes.byref(size))
+    if not fp:
+        return None
+    rc = info(0, fp)
+    fclose(fp)  # sets buf and size
+    try:
+        return ctypes.string_at(buf.value, size.value).count(b"<heap nr=") if rc == 0 else None
+    finally:
+        free(buf)
+
+
 def start_ticks(stat_line: str) -> int:
     """Field 22 of a ``/proc/<pid>/stat`` line, the process's start in
     clock ticks after boot.  The command name (field 2) is in

@@ -33,7 +33,9 @@ stages counts its own rise, so that the summary says which stage sets a
 call's peak, and at its end the record reads two gauges and keeps the
 largest of each: the bytes glibc's heaps hold free
 (``mallinfo2().fordblks``) and the bytes the CUDA pinned host allocator
-holds (``allocated_bytes.current``; None while CUDA is not initialised).
+holds (``allocated_bytes.current``; None while CUDA is not initialised);
+its span counts glibc's malloc arenas (``heap.arenas``, from
+``malloc_info``), which ``utils/mem.py::cap_arenas`` caps.
 Only one call in ``WATCH`` pays for them: on a host where a system call
 costs 3-5 us a watched call's readings took 0.3-0.5 ms, and every other
 call's two reads of the mark some 10 us.  Stages that overlap on other threads (``engine.split_intern``
@@ -57,7 +59,7 @@ import time
 
 import torch
 
-from .setup_record import heap_free_bytes, maxrss_bytes
+from .setup_record import heap_arenas, heap_free_bytes, maxrss_bytes
 
 CAP = 1 << 20
 WATCH = 8
@@ -156,7 +158,7 @@ class _Entry:
         if self.span:
             self.span.close()
             if self.outer is None and self.span.watch:
-                self.record._read_gauges()
+                self.record._read_gauges(self.span)
 
 
 class SpanRecord:
@@ -191,9 +193,13 @@ class SpanRecord:
         watched ones their stages' rises and the gauges (``_Entry``)."""
         return _Entry(self, name, gauges)
 
-    def _read_gauges(self) -> None:
+    def _read_gauges(self, span: Span) -> None:
+        """Keep the largest of each gauge, and count the arenas on the
+        watched call's ``span``."""
         t0 = time.perf_counter_ns()
-        heap, pinned = heap_free_bytes(), pinned_bytes()
+        heap, pinned, arenas = heap_free_bytes(), pinned_bytes(), heap_arenas()
+        if arenas is not None:
+            span.count("heap.arenas", arenas)
         with self._lock:
             if heap is not None and (self.heap_free is None or heap > self.heap_free):
                 self.heap_free = heap
@@ -240,7 +246,8 @@ class SpanRecord:
         (distinct call ids); ``dropped``; ``gauges``: the largest
         ``heap_free`` and ``pinned`` bytes at a watched call's end (None
         where none was read), ``reads``, the watched calls, and
-        ``cost_s``, the seconds their reading took."""
+        ``cost_s``, the seconds their reading took (the arena counts
+        included, which ride on the watched spans' ``counts``)."""
         spans = self.spans()
         by_sid = {s.sid: s for s in spans}
         kids: dict[int, list] = {}

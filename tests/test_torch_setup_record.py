@@ -247,6 +247,27 @@ def test_every_traced_call_reads_its_rise_and_every_eighth_its_stages_and_gauges
     assert RECORD.summary()["gauges"]["heap_free"] is None
 
 
+def test_a_watched_call_counts_the_malloc_arenas(rec):
+    """``heap.arenas`` rides on the watched calls' ``facade.batch_encode``
+    spans and on no other span; how many arenas the cap allows is
+    ``tests/test_torch_arenas.py``'s to check, in a fresh process."""
+    if setup_record.heap_arenas() is None:
+        pytest.skip("no malloc_info: not glibc")
+    _set_up(calls=0)
+    engine = hutoken._get_engine()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(WATCH + 1):
+            hutoken.batch_encode(DOCS)
+            engine.reset_cache()
+    spans = RECORD.spans()
+    counted = [x for x in spans if "heap.arenas" in (x.counts or {})]
+    assert len(counted) == 2
+    assert all(x.name == "facade.batch_encode" and x.watch and x.parent == 0 for x in counted)
+    assert all(x.counts["heap.arenas"] >= 1 for x in counted)
+    summed = RECORD.summary()["counts"]["heap.arenas"]
+    assert summed == sum(x.counts["heap.arenas"] for x in counted)
+
+
 def test_the_package_stamp_comes_first_and_below_the_imports_mark():
     code = ("import hutoken_tpu_torch\n"
             "from hutoken_tpu_torch.setup_record import SETUP, parse_status\n"

@@ -19,6 +19,7 @@ import fixture_tools as ft  # noqa: E402
 import hutoken_tpu_torch as hutoken  # noqa: E402
 from hutoken_tpu import oracle  # noqa: E402
 from hutoken_tpu_torch import engine as E  # noqa: E402
+from hutoken_tpu_torch.setup_record import heap_arenas  # noqa: E402
 from hutoken_tpu_torch.spans import RECORD, SpanRecord  # noqa: E402
 
 torch.set_num_threads(1)
@@ -171,7 +172,10 @@ def test_the_host_backend_counts_its_path():
     docs = ["a host call", " and another"]
     assert _traced(lambda: hutoken.batch_encode(docs)) == [oracle.encode(hutoken._ctx, d) for d in docs]
     (facade,) = RECORD.spans()
-    assert facade.name == "facade.batch_encode" and facade.counts == {"path.host": 1}
+    counts = dict(facade.counts)
+    if heap_arenas() is not None:  # glibc: the first traced call is watched
+        assert counts.pop("heap.arenas") >= 1
+    assert facade.name == "facade.batch_encode" and counts == {"path.host": 1}
     assert hutoken._engine is None
 
 
