@@ -164,6 +164,7 @@ class TorchTokenizer:
             self.tables = build_encoder_tables(ctx)
         with SETUP.stage("device_tables", full=True):
             self.dev_tables = device_tables(self.tables, ctx, self.device)
+        SETUP.note("pair_table", self.dev_tables.shape())
         # the shards that merge each block: one on the engine's device
         # without a mesh (``_mesh`` None, which gates the raw path)
         self._mesh = mesh
@@ -790,10 +791,14 @@ class TorchTokenizer:
                       pending: list, redo_src=None) -> None:
         """Start the copies of a launch's packed prefixes to the host and
         queue them: each shard's counts, then at most its own token
-        bound of tokens."""
+        bound of tokens.  Their bytes are the traced call's
+        ``bytes.d2h``."""
         self.stat_device_bytes += int(tok_bound)
         self.spans.count("bytes.device", int(tok_bound))
         staged = [self._start_copy(packed[: min(r + b, packed.shape[0])]) for packed, r, b in handle]
+        tr = self.spans.current()
+        if tr:
+            tr.count("bytes.d2h", sum(host.nbytes for host, _done in staged))
         pending.append((staged, keys, [r for _p, r, _b in handle], tok_bound, redo_src))
 
     def _start_copy(self, dev: torch.Tensor):
@@ -852,6 +857,7 @@ class TorchTokenizer:
             flagged = np.nonzero(counts_raw & 0x8000)[0]
             self.stat_device_words += k
             self.spans.count("words.device", k)
+            self.spans.count("ids.device", toks.size)
             self.stat_flagged_words += int(flagged.size)
             if flagged.size:
                 raw_src, lens_src = redo_src

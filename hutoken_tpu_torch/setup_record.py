@@ -32,7 +32,9 @@ The stamps, in the order a process makes them:
 * ``context.start`` / ``.end``: ``initialize``'s ``TokenizerContext.load``;
 * in ``TorchTokenizer.__init__``, a pair each: ``encoder_tables``,
   ``device_tables`` (the CUDA context is made there), ``replicas``,
-  ``id_table`` and ``decode_fast_path``;
+  ``id_table`` and ``decode_fast_path``; within ``device_tables``, the
+  pair ``device_tables.wide_table`` around the wide table's host
+  rebuild (``tables.py::device_tables``), for a vocabulary past 16 bits;
 * ``warmup.start`` / ``.end``: ``TorchTokenizer.warmup()``, with one
   stamp after each kernel library it loads (``warmup.<library>``);
 * ``call.<n>.start`` / ``.end``: the process's first ``CALLS`` (16)
@@ -46,6 +48,12 @@ gaps' rises add up to the mark at the last stamp; ``summary()`` gives
 both, and the last gap before ``window`` apart from the others: a
 caller that starts a profiler there pays for its buffers in that gap.
 A stage that a process runs twice (a second ``initialize``) is summed.
+
+Beside the stamps the record keeps notes, facts of set-up that are no
+reading of the clock or of memory, each set once and replaced by a
+later set-up: ``pair_table``, the pair table's layout, slots, probe
+bound and whether the multi-merge bound exists
+(``tables.py::DeviceTables.shape``).
 
     from hutoken_tpu_torch.setup_record import SETUP
 
@@ -215,6 +223,7 @@ class SetupRecord:
         self.start_ns = process_start_ns() if start_ns is None else start_ns
         self.read_pinned = None
         self.dropped = 0
+        self.notes: dict = {}
         self.cost_ns = 0  # what stamping has cost, on the stamping threads
         self._stamps: list[Stamp] = []
         self._lock = threading.Lock()
@@ -288,6 +297,11 @@ class SetupRecord:
             n = self.calls_made
         return self.stage(f"call.{n}")
 
+    def note(self, name: str, value) -> None:
+        """Keep ``value`` as the note ``name``."""
+        with self._lock:
+            self.notes[name] = value
+
     def stamps(self) -> list[Stamp]:
         with self._lock:
             return list(self._stamps)
@@ -311,13 +325,15 @@ class SetupRecord:
         * ``hwm``: the mark at the last stamp, which ``before_program``,
           the outer stages, ``gaps`` and ``to_window`` add up to;
           ``last``: the last stamp's name;
-        * ``stamps``: each stamp as a dict; ``dropped``; ``cost_s``.
+        * ``stamps``: each stamp as a dict; ``dropped``; ``cost_s``;
+          ``notes``.
 
         A reading that is None makes each sum it enters None."""
         stamps = self.stamps()
         out = {"stages": {}, "before_program": None, "gaps": None, "to_window": None,
                "hwm": None, "last": None, "stamps": [s.as_dict() for s in stamps],
-               "dropped": self.dropped, "cost_s": self.cost_ns / 1e9}
+               "dropped": self.dropped, "cost_s": self.cost_ns / 1e9,
+               "notes": dict(self.notes)}
         if not stamps:
             return out
         first = prev = stamps[0]

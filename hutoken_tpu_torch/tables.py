@@ -40,6 +40,7 @@ import torch
 from .bytemaps import utf8_char_length
 from .context import TokenizerContext
 from .pretokenize import encode_remap
+from .setup_record import SETUP
 
 INF_RANK = np.int32(0x7FFFFFFF)
 
@@ -356,6 +357,12 @@ class DeviceTables:
     def device(self) -> torch.device:
         return (self.slots if self.wide else self.pslots).device
 
+    def shape(self) -> dict:
+        """The layout, the slot count, the probe bound and whether the
+        multi-merge bound exists (single-merge rounds without it)."""
+        return {"wide": self.wide, "slots": self.cap_mask + 1, "probe_len": self.probe_len,
+                "minsuper": self.minsuper is not None}
+
     def to(self, device: torch.device | str) -> "DeviceTables":
         """The same tables on ``device`` (``self`` when already there): a
         replica for another shard's device, with no rebuild."""
@@ -476,10 +483,14 @@ def device_tables(
                 f"pair rank {max_rank} does not fit the merge kernel: its "
                 f"candidate rank * 32 + lane is 32-bit, so ranks stop at {MAX_WIDE_RANK}"
             )
-        pt = build_pair_table(enc.pairs, max_probe_len=WIDE_MAX_PROBE)
-        # empty slots keep left = right = merged = -1, rank INF_RANK
-        wide = np.stack([pt.left, pt.right, pt.rank, pt.merged], axis=1)
-        slots = torch.from_numpy(np.ascontiguousarray(wide, dtype=np.int32)).to(device)
+        # the host rebuild, a stage of its own within ``device_tables``;
+        # the upload, which may make the CUDA context, stays outside it
+        with SETUP.stage("device_tables.wide_table"):
+            pt = build_pair_table(enc.pairs, max_probe_len=WIDE_MAX_PROBE)
+            # empty slots keep left = right = merged = -1, rank INF_RANK
+            wide = np.ascontiguousarray(
+                np.stack([pt.left, pt.right, pt.rank, pt.merged], axis=1), dtype=np.int32)
+        slots = torch.from_numpy(wide).to(device)
     byte_seed = minsuper = None
     if enc.byte_seed_ids is not None:
         byte_seed = torch.from_numpy(enc.byte_seed_ids.astype(np.int32)).to(device)
