@@ -1708,7 +1708,7 @@ def hole_vocabularies(device: str, label: str) -> None:
     from hutoken_tpu_torch.native import NativeEngine
     from hutoken_tpu_torch.ops import fused_merge as FM
     from hutoken_tpu_torch.ops.merge import compact_output
-    from hutoken_tpu_torch.tables import build_encoder_tables, device_tables, max_token_id
+    from hutoken_tpu_torch.tables import build_engine_tables, device_tables, max_token_id
 
     docs = hole_docs()
     nbytes = sum(len(d.encode()) for d in docs)
@@ -1719,7 +1719,7 @@ def hole_vocabularies(device: str, label: str) -> None:
             name = "alias" if alias else "holes"
             top = 70002 if alias else 70001
             ctx = hole_ctx(tmp, alias)
-            tab = device_tables(build_encoder_tables(ctx), ctx, device)
+            tab = device_tables(build_engine_tables(ctx), ctx, device)
             u16 = max_token_id(ctx.vocab) < 0xFFFF
             check(ctx.vocab.size == 258 and tab.wide and not u16,
                   f"(11) {name}: 258 lines, the wide table and 32-bit output")

@@ -88,7 +88,7 @@ from .parallel.sharded import replicas, row_slices
 from .pretokenize import encode_remap, split_words, split_words_pattern
 from .setup_record import SETUP
 from .spans import RECORD
-from .tables import build_encoder_tables, device_tables, max_token_id
+from .tables import build_engine_tables, device_tables, max_token_id
 from .utils.mem import cap_arenas, tune_allocator
 
 # words of up to 32 bytes take the fused kernel, 33-128 bytes the id
@@ -161,10 +161,16 @@ class TorchTokenizer:
         # the set-up record (setup_record.py): each table's build as a
         # stage of the process's set-up
         with SETUP.stage("encoder_tables"):
-            self.tables = build_encoder_tables(ctx)
+            self.tables = build_engine_tables(ctx)
         with SETUP.stage("device_tables", full=True):
             self.dev_tables = device_tables(self.tables, ctx, self.device)
         SETUP.note("pair_table", self.dev_tables.shape())
+        # the slots of each host pair table set-up built: the narrow
+        # layout's probe-4 table, or the wide one that ``device_tables``
+        # builds and frees
+        host = self.tables.pair_table
+        SETUP.note("host_pair_tables", ([] if host is None else [host.capacity])
+                   + ([self.dev_tables.cap_mask + 1] if self.dev_tables.wide else []))
         # the shards that merge each block: one on the engine's device
         # without a mesh (``_mesh`` None, which gates the raw path)
         self._mesh = mesh

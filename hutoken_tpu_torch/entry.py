@@ -60,10 +60,10 @@ def tiny_context():
 
 def tiny_tables(device):
     """(context, device tables) of :func:`tiny_context` on ``device``."""
-    from .tables import build_encoder_tables, device_tables
+    from .tables import build_engine_tables, device_tables
 
     ctx = tiny_context()
-    return ctx, device_tables(build_encoder_tables(ctx), ctx, device)
+    return ctx, device_tables(build_engine_tables(ctx), ctx, device)
 
 
 def entry(device: str = "cuda"):

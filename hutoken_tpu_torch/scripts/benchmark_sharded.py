@@ -55,10 +55,10 @@ def main(argv=None) -> int:
     from ..engine import TorchTokenizer
     from ..parallel.mesh import data_mesh
     from ..parallel.sharded import sharded_merge_words
-    from ..tables import build_encoder_tables, device_tables
+    from ..tables import build_engine_tables, device_tables
 
     ctx = load_ctx("small")
-    tab = device_tables(build_encoder_tables(ctx), ctx, args.device)
+    tab = device_tables(build_engine_tables(ctx), ctx, args.device)
     one = data_mesh(1, args.device)
     single = TorchTokenizer(ctx, mesh=one)
     single.warmup()

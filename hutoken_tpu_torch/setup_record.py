@@ -33,8 +33,9 @@ The stamps, in the order a process makes them:
 * in ``TorchTokenizer.__init__``, a pair each: ``encoder_tables``,
   ``device_tables`` (the CUDA context is made there), ``replicas``,
   ``id_table`` and ``decode_fast_path``; within ``device_tables``, the
-  pair ``device_tables.wide_table`` around the wide table's host
-  rebuild (``tables.py::device_tables``), for a vocabulary past 16 bits;
+  pair ``device_tables.wide_table`` around the build of the wide table,
+  the only host pair table of a vocabulary past 16 bits
+  (``tables.py::device_tables``);
 * ``warmup.start`` / ``.end``: ``TorchTokenizer.warmup()``, with one
   stamp after each kernel library it loads (``warmup.<library>``);
 * ``call.<n>.start`` / ``.end``: the process's first ``CALLS`` (16)
@@ -53,7 +54,9 @@ Beside the stamps the record keeps notes, facts of set-up that are no
 reading of the clock or of memory, each set once and replaced by a
 later set-up: ``pair_table``, the pair table's layout, slots, probe
 bound and whether the multi-merge bound exists
-(``tables.py::DeviceTables.shape``).
+(``tables.py::DeviceTables.shape``); ``host_pair_tables``, the slots of
+each host pair table the engine's set-up built (the narrow layout's
+probe-4 table, or the wide table alone).
 
     from hutoken_tpu_torch.setup_record import SETUP
 

@@ -22,11 +22,14 @@ array they build equal to the original's.  Their notes:
   (reference: src/lib.c:422-448).
 
 :func:`device_tables` moves what the merge path reads onto a device, in
-one of two pair-table layouts chosen by the vocabulary: the narrow
-packed table (16-bit ids and ranks) that every vocabulary whose ids and
-ranks all lie below 0xFFFF keeps, and a wide table of 16-byte slots for
-the rest (100k+ vocabularies, or a few ids past 16 bits), which the JAX
-package serves with ``MODE_PROBE`` and the R-matrix programs instead.
+one of two pair-table layouts chosen by the vocabulary
+(:func:`narrow_layout`): the narrow packed table (16-bit ids and ranks)
+that every vocabulary whose ids and ranks all lie below 0xFFFF keeps,
+and a wide table of 16-byte slots for the rest (100k+ vocabularies, or
+a few ids past 16 bits), which the JAX package serves with
+``MODE_PROBE`` and the R-matrix programs instead.  The engine builds its
+host tables with the port's own :func:`build_engine_tables`, which
+builds the copy's probe-4 pair table for the narrow layout alone.
 """
 
 from __future__ import annotations
@@ -303,10 +306,81 @@ def build_encoder_tables(ctx: TokenizerContext) -> EncoderTables:
     )
 
 
-# probe bound of the wide table's rebuild: the default of 4 makes a
-# 157k-pair table 4-8 M slots (64-128 MB at 16 B a slot, past the 50 MB
-# L2); 16 keeps it at 0.25-0.5 M slots, and probing stops at the first
-# empty slot anyway
+def build_engine_tables(ctx: TokenizerContext) -> EncoderTables:
+    """:func:`build_encoder_tables`' tables with the pair table built only
+    for the layout that packs it: ``pair_table`` is None where the
+    vocabulary takes the wide layout (:func:`narrow_layout`), whose one
+    host pair table :func:`device_tables` builds from ``pairs`` at the
+    probe bound ``WIDE_MAX_PROBE``.  The default bound of 4 would make a
+    table the wide path never reads, 8 times larger (4,194,304 slots,
+    64 MB, for 127,654 pairs).  Every other field is the copy's, from the
+    same code in the same order."""
+    str2id = ctx.vocab.str2id
+    if ctx.merges is not None:
+        pairs = merges_pairs(ctx)
+        uses_merges = True
+    else:
+        pairs = enumerate_string_pairs(str2id)
+        uses_merges = False
+
+    byte_seed_ids: Optional[np.ndarray] = None
+    byte_seed_fallback: Optional[dict[int, list[int]]] = None
+    if ctx.is_byte_encoder:
+        per_byte: dict[int, Optional[list[int]]] = {}
+        all_single = True
+        for b in range(256):
+            spelled = encode_remap(bytes([b]), ctx.special_chars, None, True)
+            if uses_merges:
+                # id path seeds per UTF-8 char (src/core.c:460-474)
+                elems = []
+                i = 0
+                while i < len(spelled):
+                    ln = utf8_char_length(spelled[i])
+                    elems.append(spelled[i : i + ln])
+                    i += ln
+            else:
+                elems = _seed_elements_of_spelling(spelled)
+            ids = [str2id.get(e) for e in elems]
+            if any(i is None for i in ids):
+                per_byte[b] = None  # word containing b goes to host fallback
+                all_single = False
+            else:
+                per_byte[b] = [int(i) for i in ids]
+                if len(ids) != 1:
+                    all_single = False
+        if all_single:
+            byte_seed_ids = np.array([per_byte[b][0] for b in range(256)], dtype=np.int32)
+        byte_seed_fallback = {b: (v if v is not None else []) for b, v in per_byte.items()}
+    table = build_pair_table(pairs) if narrow_layout(pairs, ctx, byte_seed_ids) else None
+
+    # decode tables
+    vocab_size = ctx.vocab.size
+    max_len = max((len(s) for s in ctx.vocab.id2str.values()), default=1)
+    max_len = max(max_len, 1)
+    token_bytes = np.zeros((max(vocab_size, 1), max_len), dtype=np.uint8)
+    token_lens = np.zeros(max(vocab_size, 1), dtype=np.int32)
+    for tid, s in ctx.vocab.id2str.items():
+        if 0 <= tid < vocab_size:
+            token_bytes[tid, : len(s)] = np.frombuffer(s, dtype=np.uint8)
+            token_lens[tid] = len(s)
+
+    return EncoderTables(
+        pair_table=table,
+        byte_seed_ids=byte_seed_ids,
+        byte_seed_fallback=byte_seed_fallback,
+        vocab_size=vocab_size,
+        is_byte_encoder=ctx.is_byte_encoder,
+        uses_merges=uses_merges,
+        token_bytes=token_bytes,
+        token_lens=token_lens,
+        pairs=pairs,
+    )
+
+
+# probe bound of the wide table, the only host pair table a wide
+# vocabulary builds: the default of 4 makes a 157k-pair table 4-8 M slots
+# (64-128 MB at 16 B a slot, past the 50 MB L2); 16 keeps it at 0.25-0.5 M
+# slots, and probing stops at the first empty slot anyway
 WIDE_MAX_PROBE = 16
 # the merge kernel's candidate rank * 32 + lane is a 32-bit unsigned
 # value below its 0x7FFFFFFF sentinel
@@ -322,6 +396,24 @@ def max_token_id(vocab) -> int:
     every id the encoder can emit.  A vocabulary with id holes keeps its
     line count (``vocab.size``) far below it."""
     return max(max(vocab.id2str, default=-1), max(vocab.str2id.values(), default=-1))
+
+
+def narrow_layout(pairs: dict, ctx: Optional[TokenizerContext],
+                  byte_seed_ids: Optional[np.ndarray]) -> bool:
+    """Whether the narrow packed table serves ``pairs``: every id and rank
+    of the pairs (``PairTable.packed_ok``'s rule, read off the dict with
+    no table built) and every id the encoder can emit below 0xFFFF.
+
+    The emitted ids count, not only the pairs' ids: the narrow probe key
+    keeps 16 bits of each side, so a byte seed at 70,002 would probe as
+    4,466 and could hit the pair (4,466, b).  ``ctx`` None (tables built
+    by hand) bounds them by the pairs and the byte seeds alone."""
+    top = max(max(map(max, pairs), default=-1), max(map(max, pairs.values()), default=-1))
+    if ctx is not None:
+        top = max(top, max_token_id(ctx.vocab))
+    if byte_seed_ids is not None and byte_seed_ids.size:
+        top = max(top, int(byte_seed_ids.max()))
+    return top < 0xFFFF
 
 
 @dataclass(frozen=True)
@@ -449,26 +541,21 @@ def device_tables(
     enc: EncoderTables, ctx: TokenizerContext, device: torch.device | str
 ) -> DeviceTables:
     """Move ``enc``'s pair table, byte LUT and (byte mode only) the
-    minsuper bound to ``device``: the narrow packed table when every id
-    the encoder can emit and every rank fits 16 bits, else the wide
-    table, rebuilt from ``enc.pairs`` with a probe bound of
-    ``WIDE_MAX_PROBE``.
-
-    The emitted ids count, not only the pairs' ids: the narrow probe key
-    keeps 16 bits of each side, so a byte seed at 70,002 would probe as
-    4,466 and could hit the pair (4,466, b).  ``ctx`` None (tables built
-    by hand) bounds them by the pairs and the byte seeds alone."""
-    pt = enc.pair_table
+    minsuper bound to ``device``: the narrow packed table of
+    ``enc.pair_table`` where :func:`narrow_layout` says so, else the wide
+    table, built here from ``enc.pairs`` with a probe bound of
+    ``WIDE_MAX_PROBE``: the only host pair table of a wide vocabulary
+    (:func:`build_engine_tables` builds none), freed once it is uploaded.
+    A probe-4 table that ``enc`` carries there (:func:`build_encoder_tables`')
+    is not read.  ``ctx`` None: tables built by hand."""
     device = torch.device(device)
     ms = None
     if enc.byte_seed_ids is not None:
         id2str = ctx.vocab.id2str
         ms = build_minsuper(enc.pairs, id2str, minsuper_spelling_cap(enc.byte_seed_ids, id2str))
-    top = -1 if ctx is None else max_token_id(ctx.vocab)
-    if enc.byte_seed_ids is not None and enc.byte_seed_ids.size:
-        top = max(top, int(enc.byte_seed_ids.max()))
     pslots = slots = None
-    if pt.packed_ok and top < 0xFFFF:
+    if narrow_layout(enc.pairs, ctx, enc.byte_seed_ids):
+        pt = enc.pair_table
         pkey, pval = pt.packed_arrays()
         ms_slot = np.zeros(pt.capacity, dtype=np.int32)
         if ms is not None:
@@ -483,7 +570,7 @@ def device_tables(
                 f"pair rank {max_rank} does not fit the merge kernel: its "
                 f"candidate rank * 32 + lane is 32-bit, so ranks stop at {MAX_WIDE_RANK}"
             )
-        # the host rebuild, a stage of its own within ``device_tables``;
+        # the host build, a stage of its own within ``device_tables``;
         # the upload, which may make the CUDA context, stays outside it
         with SETUP.stage("device_tables.wide_table"):
             pt = build_pair_table(enc.pairs, max_probe_len=WIDE_MAX_PROBE)

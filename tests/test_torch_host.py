@@ -223,6 +223,82 @@ def test_pair_table_build_equal(n, max_probe_len):
         assert (np.array_equal(x, y) and x.dtype == y.dtype if isinstance(x, np.ndarray) else x == y), g.name
 
 
+@pytest.mark.parametrize("name", CONFIGS)
+def test_engine_tables_equal(name, wide_files):
+    """The engine's builder decides the layout as ``device_tables`` did from
+    the copy's probe-4 table (``packed_ok`` and every emitted id below
+    0xFFFF), builds that table only for the narrow layout, and gives every
+    other field of the original's tables."""
+    jctx, pctx = _pair(name, wide_files)
+    want, got = J_tables.build_encoder_tables(jctx), P_tables.build_engine_tables(pctx)
+    top = P_tables.max_token_id(pctx.vocab)
+    if want.byte_seed_ids is not None:
+        top = max(top, int(want.byte_seed_ids.max()))
+    narrow = want.pair_table.packed_ok and top < 0xFFFF
+    assert P_tables.narrow_layout(got.pairs, pctx, got.byte_seed_ids) == narrow
+    assert narrow == (name != "wide-merges")
+    for f in dataclasses.fields(want):
+        a, b = getattr(want, f.name), getattr(got, f.name)
+        if f.name == "pair_table":
+            if not narrow:
+                assert b is None
+                continue
+            for g in dataclasses.fields(a):
+                x, y = getattr(a, g.name), getattr(b, g.name)
+                assert (np.array_equal(x, y) if isinstance(x, np.ndarray) else x == y), g.name
+        elif isinstance(a, np.ndarray):
+            assert a.dtype == b.dtype and np.array_equal(a, b), f.name
+        else:
+            assert a == b, f.name
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_engine_device_tables_equal(name, wide_files):
+    """The tables the engine uploads from its builder are, element for
+    element, those that ``device_tables`` makes from the copy's tables,
+    and the original's: its packed keys and values (narrow), or its
+    table rebuilt at the probe bound ``WIDE_MAX_PROBE`` (wide)."""
+    jctx, pctx = _pair(name, wide_files)
+    got = P_tables.device_tables(P_tables.build_engine_tables(pctx), pctx, "cpu")
+    copy = P_tables.device_tables(P_tables.build_encoder_tables(pctx), pctx, "cpu")
+    jenc = J_tables.build_encoder_tables(jctx)
+    assert got.shape() == copy.shape() and got.wide == (name == "wide-merges")
+    for f in ("pslots", "slots", "byte_seed", "minsuper"):
+        a, b = getattr(got, f), getattr(copy, f)
+        assert (a is None and b is None) or (a.dtype == b.dtype and torch.equal(a, b)), f
+    if got.wide:
+        pt = J_tables.build_pair_table(jenc.pairs, P_tables.WIDE_MAX_PROBE)
+        want = np.stack([pt.left, pt.right, pt.rank, pt.merged], axis=1)
+        assert np.array_equal(got.slots.numpy(), want)
+    else:
+        pt = jenc.pair_table
+        assert np.array_equal(got.pslots[:, :2].numpy(), np.stack(pt.packed_arrays(), axis=1))
+    assert (got.probe_len, got.cap_mask) == (pt.probe_len, pt.capacity - 1)
+
+
+@pytest.mark.parametrize("where", ["none", "byte seed", "vocabulary"])
+def test_narrow_layout_counts_the_emitted_ids(where):
+    """Pairs that fit 16 bits take the wide layout when a byte seed or an id
+    of the vocabulary reaches 70,002: the narrow key keeps 16 bits of each
+    side, so such an id would probe as another."""
+    from hutoken_tpu_torch.formats import Vocab
+
+    pairs = {(104, 101): (0, 4466), (4466, 99): (1, 257)}
+    seeds = np.arange(256, dtype=np.int32)
+    str2id = {bytes([i]): i for i in range(256)} | {b"he": 4466, b"hec": 257}
+    if where == "byte seed":
+        seeds[ord("z")] = 70002
+    if where == "vocabulary":
+        str2id[b"zz"] = 70002
+    ctx = PCtx(vocab=Vocab(str2id=str2id, id2str={i: s for s, i in str2id.items()}, size=len(str2id)),
+               special_chars={}, is_byte_encoder=True)
+    assert P_tables.narrow_layout(pairs, ctx, seeds) == (where == "none")
+    assert P_tables.narrow_layout(pairs, None, seeds) == (where != "byte seed")
+    assert not P_tables.narrow_layout({(70002, 1): (0, 2)}, None, None)
+    assert not P_tables.narrow_layout({(1, 2): (0xFFFF, 3)}, None, None)
+    assert P_tables.narrow_layout({}, None, None)
+
+
 # ------------------------------------------------ pretokenize, oracle
 
 

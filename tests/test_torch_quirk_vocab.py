@@ -201,9 +201,10 @@ def test_witness_mesh(tmp_path):
 def _narrow_layout(enc):
     """The narrow packed table of ``enc``'s pairs, built by hand: the
     layout ``device_tables`` took before the emitted ids counted."""
-    from hutoken_tpu_torch.tables import DeviceTables
+    from hutoken_tpu_torch.tables import DeviceTables, build_pair_table
 
-    pt = enc.pair_table
+    pt = build_pair_table(enc.pairs)
+    assert pt.packed_ok  # every pair fits 16 bits
     pkey, pval = pt.packed_arrays()
     packed = np.stack([pkey, pval, np.zeros_like(pkey), np.zeros_like(pkey)], axis=1)
     return DeviceTables(pslots=torch.from_numpy(np.ascontiguousarray(packed)), slots=None,
@@ -223,7 +224,7 @@ def test_witness_narrow_table_past_16_bits(tmp_path, monkeypatch, raw):
     ctx = _hole_ctx(tmp_path, narrow=True)
     docs = _hole_docs() + ["zc hezc zchec " * 40]
     tok = E.TorchTokenizer(ctx, device="cpu")
-    assert tok.tables.pair_table.packed_ok
+    assert tok.tables.pair_table is None  # the wide layout builds no probe-4 table
     a, c = torch.tensor([70002]), torch.tensor([ord("c")])
     assert probe_pairs_packed(_narrow_layout(tok.tables), a, c)[1].tolist() == [257]
     assert tok.dev_tables.wide and not tok._u16_out

@@ -63,7 +63,7 @@ def wide(wide_files):
             enc = build_encoder_tables(ctx)
             with pytest.MonkeyPatch.context() as mp:
                 mp.setattr(JE, "build_encoder_tables", lambda _ctx: enc)
-                mp.setattr(E, "build_encoder_tables", lambda _ctx: enc)
+                mp.setattr(E, "build_engine_tables", lambda _ctx: enc)
                 jax_engine = JE.TpuTokenizer(ctx)
                 port = E.TorchTokenizer(ctx, device="cpu")
             built[name] = (ctx, enc, jax_engine, port)
@@ -315,6 +315,43 @@ def test_engine_matches_jax_engine_and_oracle(name, wide, monkeypatch):
     port.reset_cache()
     assert port.encode_batch(docs) == got
     assert port._raw_enc is None
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_engine_builds_one_host_pair_table(name, wide, wide_files, monkeypatch):
+    """Set-up on its own tables builds one host pair table, at the probe
+    bound ``WIDE_MAX_PROBE``, and keeps none: the set-up note
+    ``host_pair_tables`` lists its slots alone, and the engine's ids equal
+    those of the engine handed the JAX package's tables."""
+    from hutoken_tpu_torch import setup_record
+    from hutoken_tpu_torch import tables as T
+    from hutoken_tpu_torch.context import TokenizerContext as PortContext
+
+    rec = setup_record.SetupRecord()
+    for owner in (E, T):
+        monkeypatch.setattr(owner, "SETUP", rec)
+    built, build = [], T.build_pair_table
+
+    def spy(pairs, max_probe_len=4):
+        pt = build(pairs, max_probe_len)
+        built.append((max_probe_len, pt.capacity))
+        return pt
+
+    monkeypatch.setattr(T, "build_pair_table", spy)
+    vocab, special, merges = wide_files
+    ctx = PortContext.load(vocab, special, is_byte_encoder=True,
+                           merges_file_path=merges if name == "merges" else None)
+    own = E.TorchTokenizer(ctx, device="cpu")
+    slots = own.dev_tables.cap_mask + 1
+    assert built == [(T.WIDE_MAX_PROBE, slots)]
+    assert rec.summary()["notes"]["host_pair_tables"] == [slots]
+    assert own.tables.pair_table is None
+    _ctx, _enc, _jax_engine, port = wide(name)
+    assert own.dev_tables.shape() == port.dev_tables.shape()
+    assert torch.equal(own.dev_tables.slots, port.dev_tables.slots)
+    docs = _docs(1)
+    port.reset_cache()
+    assert own.encode_batch(docs) == port.encode_batch(docs)
 
 
 def test_charmode_vocab_above_16_bits(monkeypatch):

@@ -99,6 +99,52 @@ def test_the_wide_rebuild_is_a_stage_within_device_tables(files, rec):
     assert 0 < stages["device_tables.wide_table"]["seconds"] <= stages["device_tables"]["seconds"]
 
 
+def test_set_up_builds_one_host_pair_table(files, rec, monkeypatch):
+    """One host pair table, the wide one at the probe bound
+    ``WIDE_MAX_PROBE`` (524,288 slots, probe bound 10), and no table of
+    the default bound of 4 (4,194,304 slots), which the wide path never
+    read; the set-up note ``host_pair_tables`` lists it alone."""
+    built, build = [], T.build_pair_table
+
+    def spy(pairs, max_probe_len=4):
+        pt = build(pairs, max_probe_len)
+        built.append((max_probe_len, pt.capacity))
+        return pt
+
+    monkeypatch.setattr(T, "build_pair_table", spy)
+    engine = _init(files)
+    assert built == [(T.WIDE_MAX_PROBE, 524288)]
+    assert rec.summary()["notes"]["host_pair_tables"] == [524288]
+    assert engine.dev_tables.shape() == {"wide": True, "slots": 524288, "probe_len": 10,
+                                         "minsuper": False}
+    assert engine.tables.pair_table is None
+
+
+@pytest.mark.parametrize("name", ["codeparrot-py-32k", CONFIG])
+def test_the_engine_uploads_the_tables_of_the_copy(name, tmp_path):
+    """On both benchmark configurations the tables the engine's builder
+    puts on the device are, element for element, those ``device_tables``
+    makes from the copied builder's tables (the narrow configuration's
+    probe-4 table, the wide one's rebuild); the narrow one keeps that
+    table on the host, as before."""
+    from hutoken_tpu_torch.context import TokenizerContext
+
+    cfg, path = registry.config(registry.load_benchmark(), name)
+    f = harness.vocab_files(cfg, path, cache=str(tmp_path / "cache"))
+    ctx = TokenizerContext.load(f["vocab"], f["special"], merges_file_path=f["merges"],
+                                **cfg["initialize"])
+    enc, copy_enc = T.build_engine_tables(ctx), T.build_encoder_tables(ctx)
+    got, want = T.device_tables(enc, ctx, "cpu"), T.device_tables(copy_enc, ctx, "cpu")
+    assert got.wide == (cfg["table"] == "wide") and got.shape() == want.shape()
+    for field in ("pslots", "slots", "byte_seed", "minsuper"):
+        a, b = getattr(got, field), getattr(want, field)
+        assert (a is None and b is None) or (a.dtype == b.dtype and torch.equal(a, b)), field
+    if got.wide:
+        assert enc.pair_table is None and copy_enc.pair_table.capacity == 4194304
+    else:
+        assert enc.pair_table.capacity == copy_enc.pair_table.capacity == 1048576
+
+
 def test_a_traced_call_counts_what_the_card_sent_back(files, docs, rec):
     engine = _init(files)
     plain = hutoken.batch_encode(docs)
