@@ -2,11 +2,12 @@
 
 After the window, the documents of the kept calls (the first, the last
 and a sample drawn from the seed, see ``window.run_window``) are
-compared, id for id, with the plain reference (``reference/bpe.py``),
-which reads the configuration's files and encodes the same documents
-itself.  In each kept call the check takes ``check_docs`` documents: the
-longest, and the rest drawn from the seed (all of them when the call
-has no more).
+compared, id for id, with the plain reference the configuration names
+(``reference/bpe.py`` for both of today's), which reads the
+configuration's files, takes its ``initialize`` options and encodes the
+same documents itself.  In each kept call the check takes
+``check_docs`` documents: the longest, and the rest drawn from the seed
+(all of them when the call has no more).
 
 Numbers compared, each with its limit:
 

@@ -83,9 +83,11 @@ def vocab_files(config: dict, config_path: str, cache: str | None = None) -> dic
 
 
 def reference(config: dict, files: dict, rank_shift: int = 0):
-    """The configuration's plain reference over ``files``."""
+    """The configuration's plain reference over ``files``, with the
+    options the configuration hands to ``initialize``."""
     return registry.named(config["reference"], "reference")(
-        files["vocab"], files["special"], files["merges"], rank_shift=rank_shift)
+        files["vocab"], files["special"], files["merges"], rank_shift=rank_shift,
+        **config["initialize"])
 
 
 def run_cell(config: dict, config_path: str, traffic: dict, seed: int, seconds: float,

@@ -2,11 +2,14 @@
 
 A frozen copy of what the port's oracle, pre-tokenizer, file formats
 and byte maps compute (``hutoken_tpu_torch/{oracle,pretokenize,formats,
-bytemaps}.py``), cut to the configurations the benchmark runs:
-byte-encoder mode, no prefix, no user pattern.  It reads the same
-vocabulary files the harness hands to the port and works out every id
-itself; it imports nothing of the port, of its JAX original or of
-``torch``.
+bytemaps}.py``), cut to hutoken's default mode: byte-encoder mode, no
+prefix, no user pattern.  It reads the same vocabulary files the harness
+hands to the port, takes the same options the configuration hands to
+``initialize`` (``harness.reference``), and works out every id itself;
+it imports nothing of the port, of its JAX original or of ``torch``.
+Built with any other option (char mode, a prefix, a pattern) it raises
+and names the option: a configuration in another mode names a reference
+of its own in this directory.
 
 Semantics (hutoken's ``src/core.c``):
 
@@ -155,10 +158,21 @@ def greedy(elems: list, rank_of, join) -> list:
 
 
 class Reference:
-    """Encode documents with the configuration's files."""
+    """Encode documents with the configuration's files.  The keywords are
+    the facade's options for a vocabulary file; ``token_id``, as the
+    facade takes it, changes nothing."""
 
     def __init__(self, vocab: str, special: str, merges: str | None = None,
-                 rank_shift: int = 0):
+                 rank_shift: int = 0, *, is_byte_encoder: bool = True,
+                 prefix: str | None = None, pattern: str | None = None,
+                 token_id: int | None = None):
+        other = [] if is_byte_encoder else [f"is_byte_encoder={is_byte_encoder!r}"]
+        other += [f"{name}={value!r}" for name, value in (("prefix", prefix), ("pattern", pattern))
+                  if value]
+        if other:
+            raise ValueError(
+                f"bpe:Reference computes byte-encoder mode with no prefix and no pattern, "
+                f"not {', '.join(other)}: name a reference of its own for this mode")
         self.str2id = parse_vocab(vocab)
         self.special = parse_special(special)
         self.rules = parse_merges(merges, self.str2id) if merges else None

@@ -3,8 +3,9 @@
 * a cell is an entry of ``workloads``;
 * its configuration is ``configs/<config>.json`` (the entry's ``file``),
   which names the writer of its vocabulary files (``files.writer``, a
-  ``module:function`` of ``gen/``) and its plain reference
-  (``reference``, a ``module:Class`` of ``reference/``);
+  ``module:function`` of ``gen/``), its plain reference
+  (``reference``, a ``module:Class`` of ``reference/``) and the options
+  that ``initialize`` and the reference both take (``initialize``);
 * its traffic mix is ``traffic/<traffic>.json``, which names its
   generator (``generator``, a ``module:function`` of ``gen/``);
 * every metric is read by ``metrics/<metric>.py``, whose ``read(obs)``

@@ -13,6 +13,7 @@ from portbench import harness, registry
 from portbench.gen import build_codeparrot_py as build
 from portbench.gen.files import load_sample
 from portbench.pool import make_pool
+from tiny import port_context
 
 BENCH = registry.load_benchmark()
 
@@ -55,27 +56,36 @@ def test_calls_cut_in_order_with_a_shorter_last(tmp_path):
     assert sorted(d for b in p.batches for d in b) == load_sample(str(sample))
 
 
-@pytest.mark.parametrize("name", [c["name"] for c in BENCH["configs"]])
-def test_vocabulary_files(tmp_path, name):
-    from hutoken_tpu_torch.context import TokenizerContext
+def vocabulary_files_are_as_stated(cfg: dict, path: str, cache: str) -> None:
+    """The writer's files, cached, loaded with the configuration's own
+    options: as many ids and rules as it states, the table it states, and
+    the prefix it states a token of the vocabulary."""
     from hutoken_tpu_torch.tables import max_token_id
 
-    cfg, path = registry.config(BENCH, name)
-    files = harness.vocab_files(cfg, path, cache=str(tmp_path))
+    files = harness.vocab_files(cfg, path, cache=cache)
     with open(files["vocab"], encoding="utf-8") as f:
         assert sum(1 for _ in f) == cfg["vocab_size"]
     stamp = os.path.getmtime(files["vocab"])
-    assert harness.vocab_files(cfg, path, cache=str(tmp_path)) == files  # cached
+    assert harness.vocab_files(cfg, path, cache=cache) == files  # cached
     assert os.path.getmtime(files["vocab"]) == stamp
-    ctx = TokenizerContext.load(files["vocab"], files["special"], is_byte_encoder=True,
-                                merges_file_path=files["merges"])
+    ctx = port_context(cfg, files)
     narrow = max_token_id(ctx.vocab) < 0xFFFF
     assert (cfg["table"] == "narrow") == narrow
+    assert ctx.prefix is None or ctx.prefix in ctx.vocab.str2id
+    if files["merges"] is None:  # pairs ranked by the id of their join
+        assert cfg["merges"] == 0 and ctx.merges is None
+        return
     with open(files["merges"], encoding="utf-8") as f:
         lines = f.read().splitlines()[1:]  # below the "#version" header
     assert len(lines) == cfg["merges"]
     # hutoken skips every line that starts with "#" as a comment, rules too
     assert ctx.merges.num_rules == sum(not line.startswith("#") for line in lines)
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in BENCH["configs"]])
+def test_vocabulary_files(tmp_path, name):
+    cfg, path = registry.config(BENCH, name)
+    vocabulary_files_are_as_stated(cfg, path, str(tmp_path))
 
 
 def test_the_vocabulary_is_the_recipe_run_on_the_rest_of_the_library(tmp_path, monkeypatch):

@@ -16,6 +16,9 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 PATH = re.compile(r"^[A-Za-z0-9_./-]{1,200}$")
 BENCH = registry.load_benchmark()
+# the facade's options for a vocabulary file (``hutoken_tpu_torch.initialize``)
+# but ``merges_file_path``, which the harness passes from the writer's files
+INITIALIZE = {"is_byte_encoder", "prefix", "pattern", "token_id"}
 
 
 def line_ok(text: str) -> bool:
@@ -49,6 +52,14 @@ def test_configs():
         assert cfg["table"] in ("narrow", "wide") and cfg["assumed"]
         assert callable(registry.named(cfg["files"]["writer"], "gen"))
         assert callable(registry.named(cfg["reference"], "reference"))
+        initialize_is_stated(cfg)
+
+
+def initialize_is_stated(cfg: dict) -> None:
+    """The options that ``initialize`` and the reference take: among the
+    facade's, and the mode always stated (the facade's default is char
+    mode, the byte-mode reference's is byte mode)."""
+    assert set(cfg["initialize"]) <= INITIALIZE and "is_byte_encoder" in cfg["initialize"]
 
 
 def test_cells():

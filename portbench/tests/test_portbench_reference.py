@@ -1,5 +1,6 @@
 """The plain reference against ids worked out by hand on a tiny
-vocabulary, and against the port's oracle on the benchmark's own files."""
+vocabulary, and against the port's oracle on the benchmark's own files,
+each configuration with its own options."""
 
 from __future__ import annotations
 
@@ -9,7 +10,11 @@ from portbench import registry
 from portbench.gen.files import load_sample
 from portbench.harness import reference, vocab_files
 from portbench.reference.bpe import Reference
-from tiny import SAMPLE
+from tiny import SAMPLE, port_context
+
+# the configurations that ran before the reference took the options:
+# both byte-encoder mode
+BYTE_CONFIGS = ["codeparrot-py-32k", "deepseek-v3-128k-py"]
 
 SPECIAL = {32: "Ġ", 10: "Ċ"}
 
@@ -62,18 +67,44 @@ def test_words_split_as_the_parser_does(tmp_path):
     assert ref.encode("é") == [ids["Ã"], ids["©"]]
 
 
-@pytest.mark.parametrize("name", [c["name"] for c in registry.load_benchmark()["configs"]])
-def test_reference_equals_the_ports_oracle(tmp_path, name):
-    from hutoken_tpu_torch import oracle
-    from hutoken_tpu_torch.context import TokenizerContext
+def test_the_reference_refuses_a_mode_it_does_not_compute(tmp_path):
+    files = write(tmp_path, ["a", "b", "Ġ"])
+    assert Reference(*files, is_byte_encoder=True, token_id=-1).encode("ab") == [0, 1]
+    for option in ({"is_byte_encoder": False}, {"prefix": "▁"}, {"pattern": "[a-z]+"}):
+        with pytest.raises(ValueError, match=next(iter(option))):
+            Reference(*files, **{"is_byte_encoder": True, **option})
 
-    cfg, path = registry.config(registry.load_benchmark(), name)
-    files = vocab_files(cfg, path, cache=str(tmp_path))
-    ctx = TokenizerContext.load(files["vocab"], files["special"], is_byte_encoder=True,
-                                merges_file_path=files["merges"])
+
+def reference_equals_the_ports_oracle(cfg: dict, path: str, cache: str) -> None:
+    """The configuration's reference gives the port's oracle's ids on 30
+    documents, each with the configuration's options, and its control
+    differs on more than half of them."""
+    from hutoken_tpu_torch import oracle
+
+    files = vocab_files(cfg, path, cache=cache)
+    ctx = port_context(cfg, files)
     ref = reference(cfg, files)
     low = reference(cfg, files, rank_shift=8)
     docs = [d[:4000] for d in load_sample(SAMPLE)[::12]]
     for d in docs:
         assert ref.encode(d) == oracle.encode(ctx, d)
     assert sum(low.encode(d) != ref.encode(d) for d in docs) > len(docs) // 2
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in registry.load_benchmark()["configs"]])
+def test_reference_equals_the_ports_oracle(tmp_path, name):
+    cfg, path = registry.config(registry.load_benchmark(), name)
+    reference_equals_the_ports_oracle(cfg, path, str(tmp_path))
+
+
+@pytest.mark.parametrize("name", BYTE_CONFIGS)
+def test_the_options_leave_the_byte_mode_reference_as_it_was(tmp_path, name):
+    """Built by the harness with the configuration's options, the
+    reference gives the ids it gave when it took the files alone."""
+    cfg, path = registry.config(registry.load_benchmark(), name)
+    assert cfg["initialize"] == {"is_byte_encoder": True}
+    files = vocab_files(cfg, path, cache=str(tmp_path))
+    built = reference(cfg, files)
+    plain = Reference(files["vocab"], files["special"], files["merges"])
+    docs = [d[:4000] for d in load_sample(SAMPLE)[::12]]
+    assert [built.encode(d) for d in docs] == [plain.encode(d) for d in docs]

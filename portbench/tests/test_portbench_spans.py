@@ -35,7 +35,7 @@ SUMMARY = {
         "engine.assemble": stage(0.08), "engine.reset_cache": stage(0.006),
     },
     "counts": {"words": 1000, "words.new": 250, "bytes.new": 2000, "bytes.device": 1800,
-               "bytes.h2d": 5400},
+               "bytes.h2d": 5400, "bytes.d2h": 3600, "ids.device": 900},
     "calls": 3, "dropped": 0,
 }
 WANT = {
@@ -53,12 +53,16 @@ WANT = {
     "engine.new_word_share": 0.25,
     "engine.device_byte_share": 0.9,
     "engine.upload_bytes_per_device_byte": 3.0,
+    "engine.d2h_bytes_per_device_id": 4.0,
 }
 
 
 def test_every_reader_of_the_record_is_listed():
+    """The readers of the encode path's spans and counts; those of the
+    ``setup`` and ``host`` layers are ``test_portbench_setup.py``'s."""
     listed = {m["name"] for m in registry.load_benchmark()["per_layer"]
               if m["source"] in ("program_span", "program_counter")
+              and m["layer"] not in ("setup", "host")
               and m["name"] not in ("facade.ms_per_MB", "engine.ms_per_MB")}
     assert listed == set(WANT)
 

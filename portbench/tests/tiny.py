@@ -1,7 +1,8 @@
 """A small configuration and traffic for the CPU tests, written under a
 test's temporary directory: the configuration's first 2,000 merges and
 the ids they use (the narrow table), and 18 documents of the CPython
-sample cut to their first 1,500 characters."""
+sample cut to their first 1,500 characters.  And the port's context as
+a configuration's options load it."""
 
 from __future__ import annotations
 
@@ -46,3 +47,14 @@ def tiny_traffic(tmp_path, **over) -> dict:
          "reset_per_pass": True, "warmup_calls": 2, "check_calls": 4, "check_docs": 3}
     t.update(over)
     return t
+
+
+def port_context(cfg: dict, files: dict):
+    """The port's context on the configuration's files, loaded with the
+    options the harness hands to ``initialize`` (all but ``token_id``,
+    which the facade takes and ignores)."""
+    from hutoken_tpu_torch.context import TokenizerContext
+
+    options = {k: v for k, v in cfg["initialize"].items() if k != "token_id"}
+    return TokenizerContext.load(files["vocab"], files["special"],
+                                 merges_file_path=files["merges"], **options)
